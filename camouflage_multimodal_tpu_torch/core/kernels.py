@@ -1,0 +1,142 @@
+"""Build, load and count the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded through ``ctypes`` (no
+PyTorch headers: a build takes seconds, not minutes). Libraries land in
+``_build/`` beside this package, named by a hash of their sources and flags,
+so a changed source never loads a stale library. Builds happen at first use
+— or all at once, one ``nvcc`` per source started together, through
+:func:`build_all` — and never when a module is imported.
+
+``LAUNCHES`` holds one plain integer per kernel; each wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that the main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+KERNELS = ("slic_assign", "fused_mha")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each library's launcher (pointers, then sizes, then stream).
+_SIGNATURES = {
+    # pix, centers, prev, out, batch, hw, k, ratio, step, stream
+    "slic_assign": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # q, k, v, mask, wq, bq, wk, bk, wv, bv, wo, bo, qp, kp, vp, ctx, out,
+    # probs, batch, nq, nk, e, heads, scale, stream
+    "fused_mha": [_P] * 18 + [_I] * 5 + [_F, _P],
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together. Returns ``{name: ptxas report}`` (empty for cached builds)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        out = _library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return reports
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel ``name``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _library_path(name)
+            if not path.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(path))
+            lib.cmt_error_string.restype = ctypes.c_char_p
+            lib.cmt_error_string.argtypes = [ctypes.c_int]
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = _SIGNATURES[name]
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise on a nonzero ``cudaGetLastError()`` code returned by a launcher."""
+    if rc != 0:
+        msg = lib.cmt_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require_cuda_inputs(what: str, device: torch.device, **tensors) -> None:
+    """Wrapper-side checks: every tensor on ``device``, contiguous."""
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")

@@ -1,0 +1,97 @@
+"""Canny edge detection (``skimage.feature.canny(gray, sigma=2)``), batched.
+
+Port of ``camouflage_multimodal_tpu/ops/canny.py``: border-compensated
+Gaussian smoothing, Sobel gradients, bilinear non-maximum suppression and
+double-threshold hysteresis as a masked 8-connected dilation run to a fixed
+point. The gradient magnitude uses JAX's ``hypot`` formula
+(``max·sqrt(1 + (min/max)²)``), so it rounds like the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from camouflage_multimodal_tpu_torch.ops.image import gaussian_blur, sobel_h, sobel_v
+from camouflage_multimodal_tpu_torch.ops.morphology import _shift, binary_dilation_full
+
+_STEPS_PER_CHECK = 8   # hysteresis dilations between convergence tests
+
+
+def _preprocess(image: torch.Tensor, sigma: float):
+    """Smoothed image and eroded border mask (skimage ``_preprocess``)."""
+    H, W = image.shape[-2:]
+    smoothed = gaussian_blur(image, sigma, mode="constant")
+    bleed = gaussian_blur(torch.ones(H, W, dtype=image.dtype, device=image.device),
+                          sigma, mode="constant")
+    smoothed = smoothed / (bleed + 1e-12)
+    eroded = torch.zeros(H, W, dtype=torch.bool, device=image.device)
+    eroded[1:-1, 1:-1] = True
+    return smoothed, eroded
+
+
+def _hypot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = torch.abs(a), torch.abs(b)
+    hi, lo = torch.maximum(a, b), torch.minimum(a, b)
+    safe = torch.where(hi == 0, torch.ones_like(hi), hi)
+    return torch.where(hi == 0, hi, hi * torch.sqrt(1 + torch.square(lo / safe)))
+
+
+def _nonmax_suppression(gy, gx, mag, mask):
+    """Bilinear-interpolated NMS along the gradient direction."""
+    ay, ax = torch.abs(gy), torch.abs(gx)
+    sy = torch.where(gy >= 0, 1, -1)
+    sx = torch.where(gx >= 0, 1, -1)
+
+    def nb(dy_sign, dx_sign):
+        """Magnitude at (y + dy_sign·sy, x + dx_sign·sx), signs per pixel."""
+        out = None
+        for cy in ((0,) if dy_sign == 0 else (1, -1)):
+            for cx in ((0,) if dx_sign == 0 else (1, -1)):
+                shifted = _shift(mag, -cy, -cx)         # value at (y+cy, x+cx)
+                cond = torch.ones_like(mag, dtype=torch.bool)
+                if dy_sign != 0:
+                    cond = cond & (sy * dy_sign == cy)
+                if dx_sign != 0:
+                    cond = cond & (sx * dx_sign == cx)
+                term = shifted * cond
+                out = term if out is None else out + term
+        return out
+
+    w_a = torch.where(ax > 0, ay / torch.clamp(ax, min=1e-20), 0.0)
+    a_plus = (1 - w_a) * nb(0, +1) + w_a * nb(+1, +1)
+    a_minus = (1 - w_a) * nb(0, -1) + w_a * nb(-1, -1)
+    keep_a = (mag >= a_plus) & (mag >= a_minus)
+
+    w_b = torch.where(ay > 0, ax / torch.clamp(ay, min=1e-20), 0.0)
+    b_plus = (1 - w_b) * nb(+1, 0) + w_b * nb(+1, +1)
+    b_minus = (1 - w_b) * nb(-1, 0) + w_b * nb(-1, -1)
+    keep_b = (mag >= b_plus) & (mag >= b_minus)
+
+    keep = torch.where(ax >= ay, keep_a, keep_b)
+    return keep & mask & (mag > 0)
+
+
+def _hysteresis(low_mask: torch.Tensor, high_mask: torch.Tensor) -> torch.Tensor:
+    """Low-threshold pixels 8-connected to a strong pixel: dilate within the
+    low mask to a fixed point (steps past it are no-ops, so convergence is
+    tested every ``_STEPS_PER_CHECK`` steps to spare host syncs)."""
+    cur = high_mask & low_mask
+    while True:
+        prev = cur
+        for _ in range(_STEPS_PER_CHECK):
+            cur = binary_dilation_full(cur) & low_mask
+        if torch.equal(cur, prev):
+            return cur
+
+
+def canny(gray: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
+    """Canny edges of float (..., H, W) images in [0, 1] → bool maps, with
+    skimage's float-image thresholds (low 0.1, high 0.2)."""
+    smoothed, eroded = _preprocess(gray, sigma)
+    gy = sobel_h(smoothed)
+    gx = sobel_v(smoothed)
+    mag = _hypot(gy, gx)
+    local_max = _nonmax_suppression(gy, gx, mag, eroded)
+    low_mask = local_max & (mag >= 0.1)
+    high_mask = local_max & (mag >= 0.2)
+    return _hysteresis(low_mask, high_mask)

@@ -1,0 +1,155 @@
+"""Label-map connectivity enforcement (skimage's ``enforce_connectivity``).
+
+Port of the per-pixel path of ``camouflage_multimodal_tpu/ops/connectivity.py``
+(``enforce_label_connectivity``), batched over a leading axis. Its contract,
+bit for bit:
+
+1. split each cluster into 4-connected components, rooted at their min
+   raster index (min-label propagation by row/column segmented min scans to
+   a fixed point),
+2. rank roots in raster order into a compact table of ``C = 16·n_segments``
+   ids; raster-late overflow clamps into id ``C − 1``,
+3. merge components smaller than ``min_size = round(0.5·H·W/n_segments)``
+   into the component owning their raster-first large ring pixel (a small
+   component with no large contact falls back to its raster-first
+   smaller-id small neighbour), resolving chains by pointer jumping, to a
+   fixed point (at most 64 rounds),
+4. relabel survivors sequentially in raster order, clamped to
+   ``max_labels − 1``.
+
+The JAX ``lax.while_loop``s become Python loops with a convergence test. A
+round applied to an image that has already converged is a no-op, so the
+batch runs until its slowest image converges and each image gets exactly
+its own result. The JAX package's run-structured path is bit-identical to
+this one (``tests/test_connectivity_gate.py``), so the port keeps one path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_MAX_MERGE_ROUNDS = 64
+_SMALL_BIT = 1 << 24
+_SWEEPS_PER_CHECK = 2   # CC sweeps between host-synchronising convergence tests
+
+
+def _neighbor_shifts(x: torch.Tensor, fill):
+    """The four 4-connected neighbour maps of (B, H, W), edge-filled:
+    value at (y−1, x), (y+1, x), (y, x−1), (y, x+1)."""
+    row = torch.full_like(x[:, :1], fill)
+    col = torch.full_like(x[:, :, :1], fill)
+    up = torch.cat([row, x[:, :-1]], dim=1)
+    down = torch.cat([x[:, 1:], row], dim=1)
+    left = torch.cat([col, x[:, :, :-1]], dim=2)
+    right = torch.cat([x[:, :, 1:], col], dim=2)
+    return up, down, left, right
+
+
+def _run_ids(labels: torch.Tensor, dim: int) -> torch.Tensor:
+    """Index of each element's run of equal labels along ``dim``."""
+    reset = labels != torch.roll(labels, 1, dims=dim)
+    reset.narrow(dim, 0, 1).fill_(True)
+    return torch.cumsum(reset.long(), dim=dim)
+
+
+def _seg_min_scan(comp: torch.Tensor, run_ids: torch.Tensor, dim: int,
+                  offset: int) -> torch.Tensor:
+    """Min of ``comp`` over each run along ``dim``: a plain cummin of
+    ``comp ∓ offset·run`` in both directions (``offset`` > max(comp))."""
+    off = run_ids * offset
+    fwd = torch.cummin(comp - off, dim=dim).values + off
+    bwd = torch.cummin((comp + off).flip(dim), dim=dim).values.flip(dim) - off
+    return torch.minimum(fwd, bwd)
+
+
+def connected_components(labels: torch.Tensor) -> torch.Tensor:
+    """Per-pixel component root (min raster index, int64) of the
+    4-connected components of (B, H, W) label maps."""
+    B, H, W = labels.shape
+    HW = H * W
+    comp = torch.arange(HW, device=labels.device).reshape(1, H, W).expand(B, H, W)
+    s_cols = _run_ids(labels, 2)
+    s_rows = _run_ids(labels, 1)
+    while True:
+        prev = comp
+        for _ in range(_SWEEPS_PER_CHECK):   # sweeps past the fixed point are no-ops
+            comp = _seg_min_scan(comp, s_cols, 2, HW)
+            comp = _seg_min_scan(comp, s_rows, 1, HW)
+        if torch.equal(comp, prev):
+            return comp
+
+
+def enforce_label_connectivity(labels: torch.Tensor, n_segments: int,
+                               max_labels: int | None = None) -> torch.Tensor:
+    """(B, H, W) integer label maps → 0-based sequential raster-ordered
+    component labels (int64), at most ``max_labels`` of them."""
+    B, H, W = labels.shape
+    HW = H * W
+    C = min(16 * n_segments, HW)
+    if HW >= 2 ** 30 or C >= _SMALL_BIT:
+        raise ValueError(f"label maps of {H}x{W} with {n_segments} segments exceed "
+                         "the int32 packing of the JAX formulation")
+    dev = labels.device
+    min_size = round(0.5 * H * W / n_segments)
+    big = HW
+    none = 2 * big
+    idx = torch.arange(HW, device=dev)
+
+    flatroot = connected_components(labels).reshape(B, HW)
+    is_root = flatroot == idx
+    ranks = torch.cumsum(is_root.long(), dim=1) - 1
+    ones = torch.ones(B, HW, dtype=torch.long, device=dev)
+    size_t = torch.zeros(B, HW, dtype=torch.long, device=dev).scatter_add_(1, flatroot, ones)
+    small_t = (size_t > 0) & (size_t < min_size)
+    packed_t = torch.clamp(ranks, max=C - 1) + torch.where(small_t, _SMALL_BIT, 0)
+    g0 = torch.gather(packed_t, 1, flatroot)
+    flat0 = g0 & (_SMALL_BIT - 1)                       # compact ids in [0, C)
+    small0 = (g0 >= _SMALL_BIT).reshape(B, H, W)
+    size0 = torch.zeros(B, C, dtype=torch.long, device=dev).scatter_add_(1, flat0, ones)
+
+    ident = torch.arange(C, device=dev).expand(B, C)
+    nbr_idx = _neighbor_shifts(idx.reshape(1, H, W), big)
+    n_jumps = max(int(C - 1).bit_length(), 1)
+
+    def absorb_pass(comp, small, cur, size):
+        """One absorption round (see the JAX ``absorb_pass``): each small
+        component's target is its raster-first large ring pixel, else
+        (biased by +H·W) its raster-first smaller-id small neighbour."""
+        best = torch.full_like(comp, none)
+        for cn, sn, ni in zip(_neighbor_shifts(comp, -1),
+                              _neighbor_shifts(small, True), nbr_idx):
+            ok = (cn >= 0) & (cn != comp)
+            cand = torch.where(ok & ~sn, ni,
+                               torch.where(ok & sn & (cn < comp), ni + big, none))
+            best = torch.minimum(best, cand)
+        best = torch.where(small, best, none)
+
+        flat = comp.reshape(B, HW)
+        target = torch.full((B, C), none, dtype=torch.long, device=dev)
+        target.scatter_reduce_(1, flat, best.reshape(B, HW), reduce="amin")
+        ring = torch.where(target < big, target, target - big)
+        safe = torch.clamp(ring, 0, big - 1)
+        absorb = torch.where(target < none, torch.gather(flat, 1, safe), ident)
+        for _ in range(n_jumps):      # resolve merge chains to their roots
+            absorb = torch.gather(absorb, 1, absorb)
+        cur = torch.gather(absorb, 1, cur)
+        size = torch.zeros_like(size).scatter_add_(1, absorb, size)
+        return cur, size
+
+    # Round 1: ``cur`` is the identity and smallness comes from raw sizes.
+    cur, size = absorb_pass(flat0.reshape(B, H, W), small0, ident, size0)
+    rounds = 1
+    while rounds < _MAX_MERGE_ROUNDS:
+        small_c = (size > 0) & (size < min_size)
+        if not bool(small_c.any()):
+            break
+        packed_c = cur + torch.where(torch.gather(small_c, 1, cur), _SMALL_BIT, 0)
+        g = torch.gather(packed_c, 1, flat0).reshape(B, H, W)
+        cur, size = absorb_pass(g & (_SMALL_BIT - 1), g >= _SMALL_BIT, cur, size)
+        rounds += 1
+
+    live = size > 0
+    rank = torch.cumsum(live.long(), dim=1) - 1
+    if max_labels is not None:
+        rank = torch.clamp(rank, max=max_labels - 1)
+    return torch.gather(torch.gather(rank, 1, cur), 1, flat0).reshape(B, H, W)
