@@ -54,12 +54,13 @@ def load_rg_model(checkpoint_path: str, device: str | torch.device = "cuda"
 def load_multimodal_model(checkpoint_path: str, device: str | torch.device = "cuda"
                           ) -> Tuple[MultimodalCamouflageDetector, Dict[str, Any]]:
     """(fusion model in eval mode on ``device``, training config) from a
-    ``.ckpt`` whose config travels inside."""
+    ``.ckpt`` whose config travels inside. Whatever ``use_pallas`` the model
+    was trained with, inference runs its attention through the fused kernel."""
     _require_ckpt(checkpoint_path)
     dev = resolve_device(device)
     ckpt = load_checkpoint(checkpoint_path)
     config = ckpt.get("config", {})
-    model = build_multimodal_model(config.get("model", config))
+    model = build_multimodal_model({**config.get("model", config), "use_pallas": True})
     model.load_state_dict(fusion_state_dict(ckpt["params"]))
     return model.to(dev).eval(), config
 

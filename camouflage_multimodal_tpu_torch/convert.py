@@ -1,4 +1,5 @@
-"""Weight carry-over: JAX parameter trees → the port's ``state_dict``s.
+"""Weight carry-over: JAX parameter trees → the port's ``state_dict``s, and
+back for the fusion model.
 
 Inputs are nested dicts of arrays as a ``.ckpt`` (:mod:`core.checkpoint`)
 or flax ``init`` gives them. Layout rules:
@@ -59,23 +60,73 @@ def region_graph_state_dict(params: Mapping, batch_stats: Mapping
     return sd
 
 
-def fusion_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """``MultimodalCamouflageDetector`` (cross-attention) params → port."""
-    f = params["fusion"]
-    sd: Dict[str, torch.Tensor] = {}
-    for proj in ("rg_proj", "kg_proj"):
-        if proj in f:
-            sd.update(_dense(f"fusion.{proj}", f[proj]))
+_FUSION_HEADS = ("mask_head", "instance_head", "edge_head", "score_head")
+
+
+def _fusion_layout():
+    """(kind, port key prefix, path in the JAX tree) of every parameter group
+    a ``MultimodalCamouflageDetector`` can hold, cross-attention or late; a
+    model has the rows its fusion type and widths give it."""
+    rows = [("dense", f"fusion.{proj}", ("fusion", proj)) for proj in ("rg_proj", "kg_proj")]
     for attn in ("cross_attn_rg2kg", "cross_attn_kg2rg"):
-        for name in PARAM_NAMES:
-            sd[f"fusion.{attn}.{name}"] = _t(f[attn][name])
+        rows += [("raw", f"fusion.{attn}.{name}", ("fusion", attn, name))
+                 for name in PARAM_NAMES]
     for side in ("rg", "kg"):
-        sd.update(_norm(f"fusion.ln_{side}", f[f"ln_{side}"]))
-        sd.update(_dense(f"fusion.ffn_{side}.fc1", f[f"ffn_{side}"]["fc1"]))
-        sd.update(_dense(f"fusion.ffn_{side}.fc2", f[f"ffn_{side}"]["fc2"]))
-    sd.update(_dense("fusion.fusion_1", f["fusion_1"]))
-    sd.update(_dense("fusion.fusion_2", f["fusion_2"]))
-    for head in ("mask_head", "instance_head", "edge_head", "score_head"):
-        sd.update(_dense(f"{head}.0", params[f"{head}_1"]))
-        sd.update(_dense(f"{head}.2", params[f"{head}_2"]))
+        rows.append(("norm", f"fusion.ln_{side}", ("fusion", f"ln_{side}")))
+        rows += [("dense", f"fusion.ffn_{side}.{fc}", ("fusion", f"ffn_{side}", fc))
+                 for fc in ("fc1", "fc2")]
+    rows += [("dense", f"fusion.{name}", ("fusion", name))
+             for name in ("fusion_1", "fusion_2", "fc1", "fc2", "fc3")]
+    for head in _FUSION_HEADS:
+        rows += [("dense", f"{head}.fc{i}", (f"{head}_{i}",)) for i in (1, 2)]
+    return rows
+
+
+def _lookup(tree: Mapping, path):
+    for key in path:
+        if not isinstance(tree, Mapping) or key not in tree:
+            return None
+        tree = tree[key]
+    return tree
+
+
+def fusion_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``MultimodalCamouflageDetector`` params (cross-attention or late
+    fusion) → port ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for kind, prefix, path in _fusion_layout():
+        node = _lookup(params, path)
+        if node is None:
+            continue
+        if kind == "raw":
+            sd[prefix] = _t(node)
+        else:
+            sd.update((_dense if kind == "dense" else _norm)(prefix, node))
     return sd
+
+
+def fusion_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The reverse map: a port ``state_dict`` → the nested dict of numpy
+    arrays the JAX ``MultimodalCamouflageDetector`` takes as ``params``, so
+    a checkpoint the port trains is one the JAX package loads."""
+    def arr(key):
+        return sd[key].detach().cpu().numpy().astype(np.float32)
+
+    params: Dict[str, Any] = {}
+    for kind, prefix, path in _fusion_layout():
+        if kind == "raw":
+            if prefix not in sd:
+                continue
+            leaf = arr(prefix)
+        elif f"{prefix}.weight" not in sd:
+            continue
+        elif kind == "dense":
+            leaf = {"kernel": np.ascontiguousarray(arr(f"{prefix}.weight").T),
+                    "bias": arr(f"{prefix}.bias")}
+        else:
+            leaf = {"scale": arr(f"{prefix}.weight"), "bias": arr(f"{prefix}.bias")}
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return params

@@ -1,17 +1,23 @@
-"""Reader for the ``.ckpt`` checkpoint format, with numpy alone.
+"""Reader and writer for the ``.ckpt`` checkpoint format, with numpy alone.
 
-The format (written by ``camouflage_multimodal_tpu/core/checkpoint.py``) is
+The format (that of ``camouflage_multimodal_tpu/core/checkpoint.py``) is
 an ``np.savez`` zip holding every array leaf as a ``.npy`` entry plus one
 ``__meta__`` entry: a UTF-8 JSON skeleton of the nested structure whose
 nodes are ``{"t": "d"|"l"|"tu", "v": ...}`` containers, ``{"t": "s", "v":
 scalar}`` scalars and ``{"t": "a", "v": "aN"}`` array references
-(``{"t": "sd"}`` wraps a flattened structured node). Pre-npz pickle
-checkpoints are refused: unpickling them needs the JAX package's classes.
+(``{"t": "sd"}`` wraps a flattened structured node; the writer here takes
+plain dict / list / tuple / scalar / array nodes and never emits it).
+Pre-npz pickle checkpoints are refused: unpickling them needs the JAX
+package's classes. Either package reads what the other writes.
+
+:func:`save_resume_checkpoint` / :func:`load_resume_checkpoint` snapshot a
+trainer of the port mid-run in the same format.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -36,6 +42,41 @@ def _decode(node: Any, arrays: Dict[str, np.ndarray]) -> Any:
     raise ValueError(f"unknown checkpoint node type {t!r}")
 
 
+def _encode(obj: Any, arrays: Dict[str, np.ndarray]) -> Any:
+    if isinstance(obj, dict):
+        for k in obj:
+            if not isinstance(k, str):
+                raise TypeError(f"checkpoint dict keys must be str, got {k!r}")
+        return {"t": "d", "v": {k: _encode(v, arrays) for k, v in obj.items()}}
+    if isinstance(obj, (list, tuple)):
+        return {"t": "l" if isinstance(obj, list) else "tu",
+                "v": [_encode(v, arrays) for v in obj]}
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return {"t": "s", "v": obj}
+    if isinstance(obj, (np.integer, np.floating, np.bool_)):
+        return {"t": "s", "v": obj.item()}
+    if isinstance(obj, np.ndarray):
+        key = f"a{len(arrays)}"
+        arrays[key] = obj
+        return {"t": "a", "v": key}
+    raise TypeError(f"cannot checkpoint object of type {type(obj)!r}: convert "
+                    "it to dicts, lists, scalars and numpy arrays first")
+
+
+def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
+    """Write ``payload`` (nested dict / list / tuple of scalars and numpy
+    arrays) to ``path``, atomically: a crash never truncates a live file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrays: Dict[str, np.ndarray] = {}
+    meta = _encode(payload, arrays)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays,
+                 **{_META_KEY: np.frombuffer(json.dumps(meta).encode("utf-8"),
+                                             dtype=np.uint8)})
+    os.replace(tmp, path)
+
+
 def load_checkpoint(path: str) -> Any:
     """Nested dict/list/tuple structure with numpy array leaves."""
     with open(path, "rb") as f:
@@ -53,3 +94,43 @@ def load_checkpoint(path: str) -> Any:
 def scalar(x: Any) -> Any:
     """Checkpoint configs store scalars as 0-d arrays; unwrap them."""
     return x.item() if isinstance(x, np.ndarray) and x.ndim == 0 else x
+
+
+def save_resume_checkpoint(path: str, *, model_state: Dict[str, np.ndarray],
+                           optimizer_state: Dict[str, Any], epoch: int,
+                           numpy_rng: np.random.Generator,
+                           dataset_rng: np.random.Generator,
+                           generator_state: np.ndarray,
+                           history: Dict[str, Any], best_val: float,
+                           patience: int) -> None:
+    """Everything a trainer of the port needs to continue bit-exactly: the
+    model's ``state_dict`` and the optimizer's moments and step count (as
+    numpy), the epoch counter, the states of the host numpy RNGs (the
+    trainer's sampler and the dataset's augmentation), the state of the
+    torch generator that drives on-device augmentation and dropout, the running
+    history, the best validation score and the early-stop counter."""
+    save_checkpoint(path, {
+        "model_state": model_state,
+        "optimizer_state": optimizer_state,
+        "epoch": int(epoch),
+        "numpy_rng_state": numpy_rng.bit_generator.state,
+        "dataset_rng_state": dataset_rng.bit_generator.state,
+        "generator_state": generator_state,
+        "history": history,
+        "best_val": float(best_val),
+        "patience": int(patience),
+    })
+
+
+def load_resume_checkpoint(path: str) -> Dict[str, Any]:
+    """Inverse of :func:`save_resume_checkpoint`. The caller MUST restore
+    both numpy RNG states and the torch generator's state before the first
+    epoch after the resume."""
+    blob = load_checkpoint(path)
+    missing = {"model_state", "optimizer_state", "epoch", "numpy_rng_state",
+               "dataset_rng_state", "generator_state", "history", "best_val",
+               "patience"} - set(blob)
+    if missing:
+        raise ValueError(f"{path}: not a resume checkpoint of the port "
+                         f"(missing {sorted(missing)})")
+    return blob

@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("slic_assign", "fused_mha")
+KERNELS = ("slic_assign", "fused_mha", "fused_mha_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,6 +42,11 @@ _SIGNATURES = {
     # q, k, v, mask, wq, bq, wk, bk, wv, bv, wo, bo, qp, kp, vp, ctx, out,
     # probs, batch, nq, nk, e, heads, scale, stream
     "fused_mha": [_P] * 18 + [_I] * 5 + [_F, _P],
+    # q, k, v, mask, wq, wk, wv, wo, qp, kp, vp, ctx, d_out, d_probs (or
+    # null); scratch d_ctx, d_qp, d_kp, d_vp, p_heads, ds_heads, w_partial;
+    # d_q, d_k, d_v, d_wq, d_bq, d_wk, d_bk, d_wv, d_bv, d_wo, d_bo; batch,
+    # nq, nk, e, heads, key_splits, weight_splits, scale, stream
+    "fused_mha_bwd": [_P] * 32 + [_I] * 7 + [_F, _P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,81 +1,146 @@
-"""Multimodal fusion: bidirectional cross-attention + 4-head detector
-(inference).
+"""Multimodal fusion: cross-attention / late fusion + 4-head detector.
 
 Port of ``camouflage_multimodal_tpu/models/fusion.py``:
 
 * :class:`MultiheadAttention` (the JAX ``_MHA``) holds its weights in the
-  JAX layout and always calls :func:`ops.attention.fused_mha`, so on a CUDA
-  tensor every attention runs through kernel B2;
+  JAX layout. With ``use_pallas`` (the JAX package's name for "use the fused
+  kernel", kept so configs carry over) and either eval mode or
+  ``dropout == 0`` it calls :func:`ops.attention.fused_mha`: kernel B2
+  forward and, under autograd, kernel B3 backward on CUDA tensors. Else it
+  runs the plain version with attention-probability dropout.
+  ``use_pallas`` defaults to False as in the JAX package; models loaded for
+  inference by :mod:`api` always take the kernel path;
 * :class:`CrossAttentionFusion`: RG↔KG cross-attention (8 heads), residual
   LayerNorm, residual FFN, masked mean pools, 2-layer fusion MLP; returns
-  the head-averaged attention maps ``{'rg2kg', 'kg2rg'}``;
+  the head-averaged attention maps ``{'rg2kg', 'kg2rg'}``. 2-D inputs get a
+  token axis and 4-D ones are collapsed, as in the JAX module;
+* :class:`LateFusion`: masked mean pools, concat, 3-layer MLP;
 * :class:`MultimodalCamouflageDetector`: fusion + mask / instance / edge
   heads and a sigmoid score head;
 * :func:`build_multimodal_model`: the config factory with the same keys.
 
-LayerNorm uses ε = 1e-6, flax's default (torch's is 1e-5). Dropout is the
-identity at inference and is left out. Late fusion is not ported yet.
+LayerNorm uses ε = 1e-6, flax's default (torch's is 1e-5). Dropout draws
+from the ``torch.Generator`` given to
+:meth:`MultimodalCamouflageDetector.set_generator` (the global generator
+when none was given) and is the identity in eval mode.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
 from camouflage_multimodal_tpu_torch.core.checkpoint import scalar
-from camouflage_multimodal_tpu_torch.ops.attention import PARAM_NAMES, fused_mha
+from camouflage_multimodal_tpu_torch.ops.attention import (
+    PARAM_NAMES, fused_mha, multihead_attention)
 from camouflage_multimodal_tpu_torch.ops.graph import masked_mean_pool
 
 LAYER_NORM_EPS = 1e-6
 
 
+class Dropout(nn.Module):
+    """Inverted dropout with an explicit generator (``nn.Dropout`` can only
+    draw from the global one, which a resumable trainer cannot snapshot
+    without touching every other consumer)."""
+
+    def __init__(self, p: float) -> None:
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
 class MultiheadAttention(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int) -> None:
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 use_pallas: bool = False) -> None:
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = float(dropout)
+        self.use_pallas = use_pallas
+        self.generator: Optional[torch.Generator] = None
         for name in PARAM_NAMES:
             shape = (embed_dim, embed_dim) if name.startswith("w") else (embed_dim,)
-            p = nn.Parameter(torch.zeros(shape))
-            if name.startswith("w"):
-                nn.init.xavier_uniform_(p)
-            self.register_parameter(name, p)
+            self.register_parameter(name, nn.Parameter(torch.zeros(shape)))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Xavier-uniform weights, zero biases (flax ``glorot_uniform``)."""
+        with torch.no_grad():
+            for name in PARAM_NAMES:
+                p = getattr(self, name)
+                if name.startswith("w"):
+                    bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
+                    p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
+                else:
+                    p.zero_()
 
     def forward(self, q, k, v, key_mask=None):
         params = {name: getattr(self, name) for name in PARAM_NAMES}
-        return fused_mha(params, q.contiguous(), k.contiguous(), v.contiguous(),
-                         self.num_heads, key_mask)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if self.use_pallas and (not self.training or self.dropout == 0.0):
+            return fused_mha(params, q, k, v, self.num_heads, key_mask)
+        rate = self.dropout if self.training else 0.0
+        return multihead_attention(params, q, k, v, self.num_heads, key_mask,
+                                   dropout_rate=rate, generator=self.generator)
 
 
 class FFN(nn.Module):
-    def __init__(self, hidden_dim: int) -> None:
+    def __init__(self, hidden_dim: int, dropout: float = 0.0) -> None:
         super().__init__()
         self.fc1 = nn.Linear(hidden_dim, hidden_dim * 2)
+        self.drop = Dropout(dropout)
         self.fc2 = nn.Linear(hidden_dim * 2, hidden_dim)
 
     def forward(self, x):
-        return self.fc2(torch.relu(self.fc1(x)))
+        return self.fc2(self.drop(torch.relu(self.fc1(x))))
+
+
+def collapse_to_3d(t: torch.Tensor) -> torch.Tensor:
+    """2-D → add a token axis; 4-D → squeeze a singleton axis or merge the
+    two middle ones (the reference's shim, JAX ``models/fusion.py:108-120``)."""
+    if t.ndim == 2:
+        return t[:, None, :]
+    if t.ndim == 4:
+        b, a, c, d = t.shape
+        if a == 1:
+            return t[:, 0]
+        if c == 1:
+            return t[:, :, 0]
+        return t.reshape(b, a * c, d)
+    return t
 
 
 class CrossAttentionFusion(nn.Module):
     def __init__(self, rg_dim: int = 128, kg_dim: int = 128,
-                 hidden_dim: int = 256, num_heads: int = 8) -> None:
+                 hidden_dim: int = 256, num_heads: int = 8,
+                 dropout: float = 0.3, use_pallas: bool = False) -> None:
         super().__init__()
         self.rg_proj = nn.Linear(rg_dim, hidden_dim) if rg_dim != hidden_dim else nn.Identity()
         self.kg_proj = nn.Linear(kg_dim, hidden_dim) if kg_dim != hidden_dim else nn.Identity()
-        self.cross_attn_rg2kg = MultiheadAttention(hidden_dim, num_heads)
-        self.cross_attn_kg2rg = MultiheadAttention(hidden_dim, num_heads)
+        self.cross_attn_rg2kg = MultiheadAttention(hidden_dim, num_heads, dropout, use_pallas)
+        self.cross_attn_kg2rg = MultiheadAttention(hidden_dim, num_heads, dropout, use_pallas)
         self.ln_rg = nn.LayerNorm(hidden_dim, eps=LAYER_NORM_EPS)
         self.ln_kg = nn.LayerNorm(hidden_dim, eps=LAYER_NORM_EPS)
-        self.ffn_rg = FFN(hidden_dim)
-        self.ffn_kg = FFN(hidden_dim)
+        self.ffn_rg = FFN(hidden_dim, dropout)
+        self.ffn_kg = FFN(hidden_dim, dropout)
         self.fusion_1 = nn.Linear(2 * hidden_dim, hidden_dim)
+        self.drop = Dropout(dropout)
         self.fusion_2 = nn.Linear(hidden_dim, hidden_dim)
 
     def forward(self, rg, kg, rg_mask=None, kg_mask=None):
-        """rg (B, Nrg, rg_dim), kg (B, Nkg, kg_dim), masks (B, N) bool
-        (default all valid) → (fused (B, hidden), {'rg2kg', 'kg2rg'})."""
+        """rg (B, Nrg, rg_dim), kg (B, Nkg, kg_dim) (2-D and 4-D inputs are
+        collapsed to 3-D), masks (B, N) bool (default all valid) →
+        (fused (B, hidden), {'rg2kg', 'kg2rg'})."""
+        rg = collapse_to_3d(rg)
+        kg = collapse_to_3d(kg)
         B, Nrg, _ = rg.shape
         Nkg = kg.shape[1]
         if rg_mask is None:
@@ -95,29 +160,89 @@ class CrossAttentionFusion(nn.Module):
 
         combined = torch.cat([masked_mean_pool(rg_att, rg_mask),
                               masked_mean_pool(kg_att, kg_mask)], dim=-1)
-        fused = self.fusion_2(torch.relu(self.fusion_1(combined)))
+        fused = self.fusion_2(self.drop(torch.relu(self.fusion_1(combined))))
         return fused, {"rg2kg": w_rg2kg, "kg2rg": w_kg2rg}
 
 
-def _head(in_dim: int, out_dim: int) -> nn.Sequential:
-    return nn.Sequential(nn.Linear(in_dim, in_dim // 2), nn.ReLU(),
-                         nn.Linear(in_dim // 2, out_dim))
+class LateFusion(nn.Module):
+    """Mean-pool both streams, concat, 3-layer MLP → (B, hidden // 2); no
+    attention maps."""
+
+    def __init__(self, rg_dim: int = 128, kg_dim: int = 128,
+                 hidden_dim: int = 256, dropout: float = 0.3) -> None:
+        super().__init__()
+        self.fc1 = nn.Linear(rg_dim + kg_dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, hidden_dim // 2)
+        self.fc3 = nn.Linear(hidden_dim // 2, hidden_dim // 2)
+        self.drop1 = Dropout(dropout)
+        self.drop2 = Dropout(dropout)
+
+    @staticmethod
+    def _pool(x, mask):
+        if x.ndim != 3:
+            return x
+        if mask is None:
+            mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+        return masked_mean_pool(x, mask)
+
+    def forward(self, rg, kg, rg_mask=None, kg_mask=None):
+        x = torch.cat([self._pool(rg, rg_mask), self._pool(kg, kg_mask)], dim=-1)
+        x = self.drop1(torch.relu(self.fc1(x)))
+        x = self.drop2(torch.relu(self.fc2(x)))
+        return self.fc3(x), None
+
+
+class Head(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int, dropout: float = 0.0) -> None:
+        super().__init__()
+        self.fc1 = nn.Linear(in_dim, in_dim // 2)
+        self.drop = Dropout(dropout)
+        self.fc2 = nn.Linear(in_dim // 2, out_dim)
+
+    def forward(self, x):
+        return self.fc2(self.drop(torch.relu(self.fc1(x))))
 
 
 class MultimodalCamouflageDetector(nn.Module):
     def __init__(self, rg_dim: int = 128, kg_dim: int = 128, hidden_dim: int = 256,
                  num_heads: int = 8, fusion_type: str = "cross_attention",
-                 num_classes: int = 2) -> None:
+                 num_classes: int = 2, dropout: float = 0.3,
+                 use_pallas: bool = False) -> None:
         super().__init__()
-        if fusion_type != "cross_attention":
-            raise NotImplementedError(
-                f"fusion_type={fusion_type!r} is not ported yet "
-                "(only 'cross_attention')")
-        self.fusion = CrossAttentionFusion(rg_dim, kg_dim, hidden_dim, num_heads)
-        self.mask_head = _head(hidden_dim, num_classes)
-        self.instance_head = _head(hidden_dim, num_classes)
-        self.edge_head = _head(hidden_dim, 1)
-        self.score_head = _head(hidden_dim, 1)
+        if fusion_type == "cross_attention":
+            self.fusion = CrossAttentionFusion(rg_dim, kg_dim, hidden_dim, num_heads,
+                                               dropout, use_pallas)
+            final_dim = hidden_dim
+        elif fusion_type == "late":
+            self.fusion = LateFusion(rg_dim, kg_dim, hidden_dim, dropout)
+            final_dim = hidden_dim // 2
+        else:
+            raise ValueError(f"Unknown fusion_type: {fusion_type}")
+        self.mask_head = Head(final_dim, num_classes, dropout)
+        self.instance_head = Head(final_dim, num_classes, dropout)
+        self.edge_head = Head(final_dim, 1, dropout)
+        self.score_head = Head(final_dim, 1, dropout)
+
+    def set_generator(self, generator: Optional[torch.Generator]) -> None:
+        """Every dropout of the model draws from ``generator`` from now on."""
+        for m in self.modules():
+            if isinstance(m, (Dropout, MultiheadAttention)):
+                m.generator = generator
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Re-draw every parameter from ``generator`` with the JAX modules'
+        initialisers: LeCun-normal ``Linear`` weights (flax ``Dense``), zero
+        biases, Xavier-uniform attention weights, unit LayerNorm."""
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.Linear):
+                    std = 1.0 / math.sqrt(m.in_features)
+                    m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * std)
+                    m.bias.zero_()
+                elif isinstance(m, MultiheadAttention):
+                    m.reset_parameters(generator)
+                elif isinstance(m, nn.LayerNorm):
+                    m.reset_parameters()
 
     def forward(self, rg, kg, rg_mask=None, kg_mask=None,
                 return_attention: bool = False) -> Dict[str, Any]:
@@ -135,7 +260,7 @@ class MultimodalCamouflageDetector(nn.Module):
 
 def build_multimodal_model(config: Dict[str, Any]) -> MultimodalCamouflageDetector:
     """Factory with the reference's config keys and defaults
-    (``fusion_model.py:249-259``); ``dropout`` is read by training only."""
+    (``fusion_model.py:249-259``) plus the JAX package's ``use_pallas``."""
     get = lambda key, default: scalar(config.get(key, default))  # noqa: E731
     return MultimodalCamouflageDetector(
         rg_dim=int(get("rg_dim", 128)),
@@ -144,4 +269,6 @@ def build_multimodal_model(config: Dict[str, Any]) -> MultimodalCamouflageDetect
         num_heads=int(get("num_heads", 8)),
         fusion_type=str(get("fusion_type", "cross_attention")),
         num_classes=int(get("num_classes", 2)),
+        dropout=float(get("dropout", 0.3)),
+        use_pallas=bool(get("use_pallas", False)),
     )

@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--batches N] [--profile TRACE_JSON]
 
+Two paths of the port are driven: multimodal inference
+(``MultimodalPredictor``) and fusion training (``FusionTrainer``).
+
 Phases, each failing the run (nonzero exit, no result line) when it fails:
 
 1. build every CUDA kernel of ``camouflage_multimodal_tpu_torch/csrc`` with
@@ -16,18 +19,39 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    fusion weights in both directions of the main path (4 × 640 queries ×
    13 keys and 4 × 13 queries × 640 keys, partial key masks): out within
    rtol/atol 1e-4, probabilities within rtol 1e-3 / atol 2e-3;
-4. the main path: ``MultimodalPredictor`` built from the three committed
+4. kernel B3 ``fused_mha_bwd``, the gradient of B2, against its plain
+   backward through ``torch.autograd`` on the card: the training shapes
+   (4 × 576 × 13 and 4 × 13 × 576) and the inference ones (640), partial key
+   masks plus one batch row with every key masked, with a non-zero
+   cotangent for the attention maps and once with none. Each of d_q, d_k,
+   d_v and the 8 parameter gradients within rtol = atol = 1e-4, all finite;
+   two runs on the same inputs bit-equal;
+5. the inference path: ``MultimodalPredictor`` built from the three committed
    artifacts answers ``--batches`` batches of 4 seeded uint8 images at
    256². Launch counters are zeroed just before and read just after: B1
    must have launched 10 times and B2 twice per batch. Outputs must be
    finite and the first image must agree with the CPU port (segment maps
    ≥ 99 % equal, heatmap MAE ≤ 1e-2);
-5. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel,
+6. the training path: ``FusionTrainer.fit`` with device-resident epochs on
+   64 seeded synthetic records shaped like real ones (380–560 nodes and one
+   of 600 that the 576-node bucket truncates, 128-d, the committed KG
+   embeddings, separable labels), the full-width model with
+   ``dropout = 0, use_pallas = True``, batch 4, 2 epochs. Launch counters
+   are zeroed just before and read just after: B2 must have launched twice
+   per train and per eval step and B3 twice per train step, exactly. Every
+   loss finite, the last epoch's train loss under the first's, the best
+   checkpoint written and loaded back by ``api.load_multimodal_model``. The
+   same run on the CPU with the same seeds: epoch-0 train loss within 1e-3
+   relative, final parameters within 1e-3. A short run at ``dropout = 0.3``
+   with on-device augmentation: train steps launch neither kernel, eval
+   steps launch B2;
+7. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel,
    its plain version, ``torch.nn.functional.multi_head_attention_forward``
-   as B2's library yardstick (the port never calls it), and the slice's
-   ms per batch and images per second. ``--profile`` adds a
-   ``torch.profiler`` breakdown of one batch and writes its Chrome trace
-   to the path given.
+   (and its autograd backward) as B2's and B3's library yardstick (the port
+   never calls it), the inference slice's ms per batch and images per
+   second, and the ms per train step and steps per second. ``--profile``
+   adds ``torch.profiler`` breakdowns of one inference batch and of three
+   train steps and writes the batch's Chrome trace to the path given.
 
 Prints JSON lines per phase, then the card's name and power limit, the
 kernel table line, and as its last line
@@ -42,6 +66,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -51,6 +76,11 @@ ARTIFACTS = ("artifacts/checkpoints_balanced/multimodal_best_fixed.ckpt",
 BATCH = 4
 SIZE = 256
 SLIC_ITERS = 10
+HEADS = 8
+TRAIN_NODES = 576          # FusionDataset's default node bucket
+TRAIN_RECORDS = 64
+TRAIN_EPOCHS = 2
+GRAD_NAMES = ("d_q", "d_k", "d_v", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 on the CUDA
 # cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -106,6 +136,22 @@ def cuda_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         per.append(start.elapsed_time(end) / reps)
     per.sort()
     return per[len(per) // 2]
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Mean host time to enqueue one call (no wait for the card inside the
+    window): where it nears ``cuda_ms`` of the same call, the host and not
+    the card sets that time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e3
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -219,6 +265,174 @@ def phase_fused_mha(torch, attention_mod, fusion_model):
     return cases, max(worst_out, worst_p)
 
 
+def mha_bwd_case(torch, attention_mod, fusion_model, nq, nk):
+    """Inputs of one B3 check: ``mha_inputs`` with values of their own, the
+    third batch row's keys all masked, leaves that require grad, and seeded
+    cotangents for both outputs."""
+    params, q, k, mask = mha_inputs(torch, fusion_model, nq, nk, seed=1000 + nq)
+    g = torch.Generator(device="cuda").manual_seed(2000 + nq)
+    v = torch.randn(k.shape, generator=g, device="cuda") * 0.5
+    mask = mask.clone()
+    mask[2] = False
+    d_out = torch.randn(q.shape, generator=g, device="cuda")
+    d_probs = torch.randn(BATCH, nq, nk, generator=g, device="cuda")
+    leaves = [t.clone().requires_grad_() for t in
+              (q, k, v, *(params[n] for n in attention_mod.PARAM_NAMES))]
+    return leaves, mask, d_out, d_probs
+
+
+def kernel_grads(torch, attention_mod, leaves, mask, d_out, d_probs):
+    """The 11 gradients through ``fused_mha`` (B2 forward, B3 backward)."""
+    q, k, v, *weights = leaves
+    params = dict(zip(attention_mod.PARAM_NAMES, weights))
+    out, probs = attention_mod.fused_mha(params, q, k, v, HEADS, mask)
+    if d_probs is None:
+        return torch.autograd.grad([out], leaves, [d_out])
+    return torch.autograd.grad([out, probs], leaves, [d_out, d_probs])
+
+
+def plain_grads(torch, attention_mod, leaves, mask, d_out, d_probs):
+    q, k, v, *weights = (t.detach() for t in leaves)
+    params = dict(zip(attention_mod.PARAM_NAMES, weights))
+    d_params, d_q, d_k, d_v = attention_mod.multihead_attention_backward(
+        params, q, k, v, HEADS, mask, d_out, d_probs)
+    return (d_q, d_k, d_v, *(d_params[n] for n in attention_mod.PARAM_NAMES))
+
+
+def phase_fused_mha_bwd(torch, kernels, attention_mod, fusion_model):
+    worst = 0.0
+    cases = {}
+    for name, nq, nk in (("rg2kg", TRAIN_NODES, 13), ("kg2rg", 13, TRAIN_NODES),
+                         ("rg2kg_640", 640, 13), ("kg2rg_640", 13, 640)):
+        leaves, mask, d_out, d_probs = mha_bwd_case(torch, attention_mod, fusion_model, nq, nk)
+        for with_probs in (True, False):
+            dp = d_probs if with_probs else None
+            before = kernels.LAUNCHES["fused_mha_bwd"]
+            got = kernel_grads(torch, attention_mod, leaves, mask, d_out, dp)
+            torch.cuda.synchronize()
+            launched = kernels.LAUNCHES["fused_mha_bwd"] - before
+            again = kernel_grads(torch, attention_mod, leaves, mask, d_out, dp)
+            want = plain_grads(torch, attention_mod, leaves, mask, d_out, dp)
+            errs = {n: float((a - b).abs().max()) for n, a, b in zip(GRAD_NAMES, got, want)}
+            close = all(torch.allclose(a, b, rtol=1e-4, atol=1e-4) for a, b in zip(got, want))
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = close and finite and repeat and launched == 1
+            emit({"phase": "fused_mha_bwd_check", "direction": name, "nq": nq, "nk": nk,
+                  "d_probs": with_probs, "max_abs_err": errs, "within_1e-4": close,
+                  "finite": finite, "bit_equal_repeat": repeat, "launches": launched,
+                  "ok": ok})
+            if not ok:
+                fail(f"B3 fails its check ({name}, d_probs={with_probs})")
+            worst = max(worst, *errs.values())
+        cases[name] = (leaves, mask, d_out, d_probs)
+    return cases, worst
+
+
+def train_records(np, seed: int = 11):
+    """Seeded records shaped like extracted ones: 380–560 nodes of 128 dims
+    (one of 600, which the 576-node bucket truncates), the committed KG
+    embeddings, and labels a linear probe separates."""
+    rng = np.random.default_rng(seed)
+    with np.load(ARTIFACTS[2]) as z:
+        kg = np.stack([z[k].reshape(-1) for k in sorted(z.files)]).astype(np.float32)
+    counts = rng.integers(380, 561, TRAIN_RECORDS)
+    counts[5] = 600
+    records = []
+    for i, n in enumerate(counts):
+        label = i % 2
+        base = np.full((int(n), 128), 2.0 * label - 1.0, np.float32)
+        records.append({
+            "image_name": f"synthetic{i}.jpg",
+            "rg_node_embeddings": base + rng.standard_normal((int(n), 128)).astype(np.float32) * 0.1,
+            "kg_embeddings": kg, "label": label, "confidence": 1.0,
+            "edge_label": float(label), "score_label": float(label)})
+    return records
+
+
+def fit_fusion(train_mod, records, device, dropout, epochs, out_dir=None, augment=False):
+    """(trainer, model, history, wall seconds of each epoch) of one
+    device-resident ``FusionTrainer.fit``."""
+    ds = train_mod.FusionDataset.from_samples(records, augment=augment,
+                                              log_fn=lambda *_: None)
+    trainer = train_mod.FusionTrainer(model_config={"dropout": dropout, "use_pallas": True})
+    stamps = [time.perf_counter()]
+    model, history = trainer.fit(ds, epochs=epochs, batch_size=BATCH, seed=0,
+                                 checkpoint_dir=out_dir, device_resident=True,
+                                 device=device,
+                                 log_fn=lambda *_: stamps.append(time.perf_counter()))
+    return trainer, ds, model, history, [b - a for a, b in zip(stamps, stamps[1:])]
+
+
+def phase_train_slice(torch, np, kernels, api, train_mod, out_dir):
+    """Drive the training path; returns (trainer, dataset, its launches)."""
+    records = train_records(np)
+    n_train = int(0.8 * TRAIN_RECORDS)
+    train_steps = max(n_train // BATCH, 1)
+    eval_steps = max((TRAIN_RECORDS - n_train) // BATCH, 1)
+
+    kernels.reset_launches()
+    trainer, ds, model, history, epoch_s = fit_fusion(
+        train_mod, records, "cuda", 0.0, TRAIN_EPOCHS, out_dir)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = {"slic_assign": 0,
+            "fused_mha": 2 * (train_steps + eval_steps) * TRAIN_EPOCHS,
+            "fused_mha_bwd": 2 * train_steps * TRAIN_EPOCHS}
+    emit({"phase": "train_slice", "records": TRAIN_RECORDS, "batch": BATCH,
+          "epochs": TRAIN_EPOCHS, "train_steps_per_epoch": train_steps,
+          "eval_steps_per_epoch": eval_steps, "bucket": ds.max_rg_nodes,
+          "truncated_nodes": ds.truncated_nodes, "launches": launches,
+          "expected_launches": want, "epoch_seconds": epoch_s, "history": history})
+    if launches != want:
+        fail(f"training launched {launches}, expected {want}")
+    losses = history["train_loss"] + history["val_loss"]
+    if len(history["train_loss"]) != TRAIN_EPOCHS or not np.isfinite(losses).all():
+        fail(f"training losses are not finite: {losses}")
+    if not history["train_loss"][-1] < history["train_loss"][0]:
+        fail(f"train loss did not fall: {history['train_loss']}")
+    if ds.max_rg_nodes != TRAIN_NODES or ds.truncated_nodes == 0:
+        fail("the 600-node record did not go through the truncation path")
+
+    ckpt = os.path.join(out_dir, "multimodal_best_fixed.ckpt")
+    if not os.path.exists(ckpt):
+        fail("no best checkpoint was written")
+    loaded, config = api.load_multimodal_model(ckpt, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in ds.collate([0, 1, 2, 3]).items()}
+    with torch.no_grad():
+        out = loaded(batch["rg"], batch["kg"], rg_mask=batch["rg_mask"])
+    preds = out["mask_logits"].argmax(-1).cpu().numpy()
+    emit({"phase": "train_checkpoint", "config": config, "predictions": preds.tolist(),
+          "labels": batch["y"].cpu().numpy().tolist()})
+    if out["mask_logits"].shape != (4, 2) or not bool(torch.isfinite(out["mask_logits"]).all()):
+        fail("the reloaded checkpoint does not predict")
+
+    _, _, cpu_model, cpu_history, cpu_epoch_s = fit_fusion(
+        train_mod, records, "cpu", 0.0, TRAIN_EPOCHS)
+    rel = abs(history["train_loss"][0] - cpu_history["train_loss"][0]) / abs(cpu_history["train_loss"][0])
+    cpu_sd = cpu_model.state_dict()
+    param_diff = max(float((v.cpu() - cpu_sd[k]).abs().max())
+                     for k, v in model.state_dict().items())
+    emit({"phase": "train_vs_cpu", "epoch0_train_loss_rel_diff": rel,
+          "final_param_max_abs_diff": param_diff, "cpu_history": cpu_history,
+          "cpu_epoch_seconds": cpu_epoch_s})
+    if rel > 1e-3 or param_diff > 1e-3:
+        fail(f"GPU training disagrees with the CPU port: loss {rel}, parameters {param_diff}")
+
+    kernels.reset_launches()
+    _, _, _, drop_history, _ = fit_fusion(train_mod, records, "cuda", 0.3, 1, augment=True)
+    drop_launches = dict(kernels.LAUNCHES)
+    drop_want = {"slic_assign": 0, "fused_mha": 2 * eval_steps, "fused_mha_bwd": 0}
+    emit({"phase": "train_dropout", "dropout": 0.3, "augment": True,
+          "launches": drop_launches, "expected_launches": drop_want,
+          "history": drop_history})
+    if drop_launches != drop_want:
+        fail(f"dropout training launched {drop_launches}, expected {drop_want}")
+    if not np.isfinite(drop_history["train_loss"] + drop_history["val_loss"]).all():
+        fail("dropout training losses are not finite")
+    return trainer, ds, launches
+
+
 def phase_slice(torch, np, kernels, api, n_batches):
     """Drive the main path; returns (predictor, batches, main-path launches)."""
     predictor = api.MultimodalPredictor(*ARTIFACTS, device="cuda")
@@ -315,8 +529,123 @@ def phase_times(torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches
           "slic_assign_ms": b1_ms, "slic_assign_plain_ms": b1_plain,
           "slic_assign_in_box_pairs": pairs})
     if trace:
-        phase_profile(torch, predictor, batches[0], trace)
+        phase_profile(torch, "one inference batch",
+                      lambda: predictor.predict_batch(batches[0]), trace)
     return (b1_ms, b1_plain, b1_bound, pairs), (b2, b2_bound)
+
+
+def phase_times_train(torch, attention_mod, b3_cases, trainer, ds, profile):
+    """B3, its plain backward and the library's backward per direction at
+    the training shapes, B2 there too, and the train step."""
+    F = torch.nn.functional
+    names = attention_mod.PARAM_NAMES
+    b3 = {}
+    for name in ("rg2kg", "kg2rg"):
+        leaves, mask, d_out, d_probs = b3_cases[name]
+        q, k, v, *weights = leaves
+        params = dict(zip(names, weights))
+        E = q.shape[-1]
+        Bq, Nq, _ = q.shape
+        Nk = k.shape[1]
+
+        out, probs = attention_mod.fused_mha(params, q, k, v, HEADS, mask)
+
+        def kernel():
+            return torch.autograd.grad([out, probs], leaves, [d_out, d_probs],
+                                       retain_graph=True)
+
+        detached = {n: w.detach() for n, w in params.items()}
+        qd, kd, vd = q.detach(), k.detach(), v.detach()
+
+        def plain():
+            return attention_mod.multihead_attention_backward(
+                detached, qd, kd, vd, HEADS, mask, d_out, d_probs)
+
+        w_in = torch.cat([params["wq"].T, params["wk"].T, params["wv"].T]).detach().requires_grad_()
+        b_in = torch.cat([params["bq"], params["bk"], params["bv"]]).detach().requires_grad_()
+        w_out = params["wo"].T.detach().contiguous().requires_grad_()
+        b_out = params["bo"].detach().requires_grad_()
+        lib_leaves = [t.detach().transpose(0, 1).contiguous().requires_grad_()
+                      for t in (q, k, v)]
+        lib_out, lib_p = F.multi_head_attention_forward(
+            *lib_leaves, E, HEADS, w_in, b_in, None, None, False, 0.0, w_out, b_out,
+            training=False, key_padding_mask=~mask, need_weights=True,
+            average_attn_weights=True)
+        lib_inputs = lib_leaves + [w_in, b_in, w_out, b_out]
+        lib_d_out = d_out.transpose(0, 1).contiguous()
+
+        def library():
+            return torch.autograd.grad([lib_out, lib_p], lib_inputs, [lib_d_out, d_probs],
+                                       retain_graph=True)
+
+        ref = plain()
+        lib = library()
+        flops = Bq * (8 * Nq * E * E + 8 * Nk * E * E + 10 * Nq * Nk * E)
+        nbytes = 4 * (3 * Bq * Nq * E          # q, ctx, d_out
+                      + Bq * Nq * E            # qp
+                      + 4 * Bq * Nk * E        # k, v, kp, vp
+                      + Bq * Nq * Nk           # d_probs
+                      + 4 * E * E              # the four weights
+                      + Bq * Nq * E + 2 * Bq * Nk * E      # d_q, d_k, d_v
+                      + 4 * E * E + 4 * E) + Bq * Nk       # parameter gradients, mask
+        b3[name] = {
+            "ms": cuda_ms(kernel), "host_ms": host_ms(kernel),
+            "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+            "fused_mha_ms": cuda_ms(lambda: attention_mod.fused_mha(detached, qd, kd, vd, HEADS, mask)),
+            # Batch row 2 has every key masked: the library call masks with
+            # -inf and gives NaN there, so its gradient is compared elsewhere.
+            "library_max_abs_err_d_q": float(
+                (lib[0].transpose(0, 1) - ref[1])[[0, 1, 3]].abs().max()),
+            "flops": flops, "bytes": nbytes,
+        }
+        emit({"phase": "fused_mha_bwd_time", "direction": name, "nq": Nq, "nk": Nk, **b3[name]})
+    b3_bound = bound_ms(sum(v["bytes"] for v in b3.values()),
+                        sum(v["flops"] for v in b3.values()))
+
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                ds.collate(list(range(i, i + BATCH))).items()}
+               for i in range(0, 12 * BATCH, BATCH)]
+
+    def steps(some):
+        for batch in some:
+            trainer.train_step(batch, 1e-5)
+
+    steps(batches)                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(batches)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / len(batches)
+    emit({"phase": "train_step_time", "ms_per_step": step_s * 1e3,
+          "steps_per_second": 1.0 / step_s, "samples_per_second": BATCH / step_s,
+          "batch": BATCH, "nodes": ds.max_rg_nodes, "steps_timed": len(batches),
+          "fused_mha_ms_per_step": sum(v["fused_mha_ms"] for v in b3.values()),
+          "fused_mha_bwd_ms_per_step": sum(v["ms"] for v in b3.values())})
+    # Where a step's time goes: host clock with a wait for the card after
+    # each part (so the parts add up to more than an unsynchronised step).
+    from camouflage_multimodal_tpu_torch.train.state import apply_updates
+
+    parts = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
+    trainer.model.train()
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.model(batch["rg"], batch["kg"], rg_mask=batch["rg_mask"])
+        loss = trainer.batch_loss(out, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        apply_updates(trainer.optimizer, 1e-5)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key] += dt * 1e3 / len(batches)
+    emit({"phase": "train_step_parts", **parts})
+    if profile:
+        phase_profile(torch, "three train steps", lambda: steps(batches[:3]))
+    return b3, b3_bound
 
 
 def busy_us(spans, lo=float("-inf"), hi=float("inf")) -> float:
@@ -335,28 +664,35 @@ def busy_us(spans, lo=float("-inf"), hi=float("inf")) -> float:
     return total + (0.0 if cur_end is None else cur_end - cur_start)
 
 
-def phase_profile(torch, predictor, batch, trace):
-    """One batch under ``torch.profiler``: device time by kernel, device busy
-    and idle share of the batch's wall time, and each pipeline stage's host
-    time, device span and device busy time (the ``cmt::`` ranges of
-    pipeline.py)."""
+def phase_profile(torch, what, fn, trace=None):
+    """``fn()`` under ``torch.profiler``: device time by kernel, device busy
+    and idle share of its wall time, and each pipeline stage's host time,
+    device span and device busy time (the ``cmt::`` ranges of pipeline.py).
+    Writes the Chrome trace to ``trace`` when given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    os.makedirs(os.path.dirname(trace), exist_ok=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predictor.predict_batch(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(trace)
+    if trace:
+        os.makedirs(os.path.dirname(trace), exist_ok=True)
+        prof.export_chrome_trace(trace)
     # A cmt:: range appears on the host and, as an annotation from the
     # stage's first to its last device activity, on the card's timeline.
     # Every other event on the card is a kernel or a copy.
     events = prof.events()
-    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in events
-                   if ev.device_type == DeviceType.CUDA and not ev.name.startswith("cmt::"))
+    def on_card(ev):
+        """A kernel or a copy: not a host range mirrored onto the card's
+        timeline (the cmt:: stages, the optimizer's step annotation)."""
+        return (ev.device_type == DeviceType.CUDA and not ev.name.startswith("cmt::")
+                and not getattr(ev, "is_user_annotation", False)
+                and not ev.name.startswith("Optimizer."))
+
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in events if on_card(ev))
     by_kernel = {}
     stages = {}
     for ev in events:
@@ -369,17 +705,23 @@ def phase_profile(torch, predictor, batch, trace):
                                                   ev.time_range.end) / 1e3
             else:
                 stage["host_ms"] = ms
-        elif ev.device_type == DeviceType.CUDA:
+        elif on_card(ev):
             t, n = by_kernel.get(ev.name, (0.0, 0))
             by_kernel[ev.name] = (t + ms, n + 1)
     busy_ms = busy_us(spans) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
-    emit({"phase": "profile", "wall_ms": wall_ms,
+    host_top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:12]
+    emit({"phase": "profile", "of": what, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms if spans else "not measured",
           "device_idle_share": 1 - busy_ms / wall_ms if spans else "not measured",
           "device_events": len(spans), "stages": stages,
           "top_kernels": [{"kernel": k[:80], "ms": t, "calls": n}
-                          for k, (t, n) in top]})
+                          for k, (t, n) in top],
+          "hand_written_kernels": {k.split("::")[1].split("(")[0]: {"ms": t, "calls": n}
+                                   for k, (t, n) in by_kernel.items()
+                                   if k.startswith("(anonymous namespace)::")},
+          "top_host_ops": [{"op": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                            "calls": e.count} for e in host_top]})
 
 
 def main() -> None:
@@ -404,6 +746,7 @@ def main() -> None:
         from camouflage_multimodal_tpu_torch.core import kernels
         from camouflage_multimodal_tpu_torch.ops import attention as attention_mod
         from camouflage_multimodal_tpu_torch.ops import slic as slic_mod
+        from camouflage_multimodal_tpu_torch.train import train_fusion as train_mod
     except ImportError as e:
         fail(f"the port is not importable next to this script: {e}")
     for path in ARTIFACTS:
@@ -415,9 +758,15 @@ def main() -> None:
     b1 = phase_slic_assign(torch, slic_mod, synthetic_images(7, BATCH, SIZE))
     fusion_model, _ = api.load_multimodal_model(ARTIFACTS[0], device="cuda")
     b2_cases, b2_err = phase_fused_mha(torch, attention_mod, fusion_model)
+    b3_cases, b3_err = phase_fused_mha_bwd(torch, kernels, attention_mod, fusion_model)
     predictor, batches, launches = phase_slice(torch, np, kernels, api, args.batches)
+    with tempfile.TemporaryDirectory() as out_dir:
+        trainer, train_ds, train_launches = phase_train_slice(
+            torch, np, kernels, api, train_mod, out_dir)
     (b1_ms, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
         torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches, trace)
+    b3, b3_bound = phase_times_train(torch, attention_mod, b3_cases, trainer, train_ds,
+                                     bool(trace))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -436,11 +785,24 @@ def main() -> None:
          "source": "camouflage_multimodal_tpu_torch/csrc/fused_mha.cu",
          "replaces": "camouflage_multimodal_tpu/ops/pallas_attention.py:30",
          "per": "2 launches: rg2kg (4x640 q, 13 k) + kg2rg (4x13 q, 640 k), E=256, 8 heads",
-         "launches": launches["fused_mha"], "max_abs_err": b2_err,
+         "launches": launches["fused_mha"] + train_launches["fused_mha"],
+         "launches_inference": launches["fused_mha"],
+         "launches_training": train_launches["fused_mha"],
+         "ms_training_shapes": sum(v["fused_mha_ms"] for v in b3.values()),
+         "max_abs_err": b2_err,
          "ms": sum(v["ms"] for v in b2.values()),
          "plain_ms": sum(v["plain_ms"] for v in b2.values()),
          "bound_ms": b2_bound[0], "bound_by": b2_bound[1],
          "library_ms": sum(v["library_ms"] for v in b2.values())},
+        {"name": "fused_mha_bwd", "route": "cuda",
+         "source": "camouflage_multimodal_tpu_torch/csrc/fused_mha_bwd.cu",
+         "replaces": "camouflage_multimodal_tpu/ops/pallas_attention.py:128",
+         "per": "2 launches: rg2kg (4x576 q, 13 k) + kg2rg (4x13 q, 576 k), E=256, 8 heads",
+         "launches": train_launches["fused_mha_bwd"], "max_abs_err": b3_err,
+         "ms": sum(v["ms"] for v in b3.values()),
+         "plain_ms": sum(v["plain_ms"] for v in b3.values()),
+         "bound_ms": b3_bound[0], "bound_by": b3_bound[1],
+         "library_ms": sum(v["library_ms"] for v in b3.values())},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

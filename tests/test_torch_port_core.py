@@ -21,7 +21,8 @@ from camouflage_multimodal_tpu.data.cod10k import load_image_rgb as j_load_image
 from camouflage_multimodal_tpu.data.matcher import (  # noqa: E402
     build_ordered_kg_tensor as j_order_kg)
 from camouflage_multimodal_tpu_torch import data as T_data  # noqa: E402
-from camouflage_multimodal_tpu_torch.core.checkpoint import load_checkpoint  # noqa: E402
+from camouflage_multimodal_tpu_torch.core.checkpoint import (  # noqa: E402
+    load_checkpoint, save_checkpoint)
 from camouflage_multimodal_tpu_torch.core.device import resolve_device  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,6 +62,33 @@ def test_checkpoint_reader_refuses_legacy_pickle(tmp_path):
         pickle.dump({"params": {}}, f)
     with pytest.raises(ValueError, match="legacy pickle"):
         load_checkpoint(str(p))
+
+
+def test_save_checkpoint_round_trip_and_jax_reader(tmp_path):
+    """What the port writes, the port and the JAX package read back alike;
+    a crash mid-write cannot truncate a live file (temp file + rename)."""
+    rng = np.random.default_rng(3)
+    payload = {
+        "epoch": 4, "val_loss": 0.25, "name": "fusion", "none": None, "flag": True,
+        "params": {"fusion": {"w": rng.standard_normal((3, 5)).astype(np.float32),
+                              "b": np.zeros(5, np.float32)}},
+        "history": {"loss": [1.5, 0.5], "f1": []},
+        "shape": (2, 3), "np_scalar": np.float32(0.5), "big": 2 ** 100,
+        "rng": np.random.default_rng(1).bit_generator.state,
+        "bytes": np.arange(7, dtype=np.uint8), "ids": np.arange(4),
+    }
+    path = str(tmp_path / "sub" / "model.ckpt")
+    save_checkpoint(path, payload)
+    assert os.listdir(tmp_path / "sub") == ["model.ckpt"]
+    want = dict(payload, np_scalar=0.5)
+    _assert_same_tree(load_checkpoint(path), want)
+    _assert_same_tree(j_load(path), want)
+    save_checkpoint(path, {"epoch": 5})                      # overwrite in place
+    assert load_checkpoint(path) == {"epoch": 5}
+    for bad in ({"x": object()}, {1: 2}, {"t": torch.zeros(2)}):
+        with pytest.raises(TypeError):
+            save_checkpoint(path, bad)
+    assert load_checkpoint(path) == {"epoch": 5}
 
 
 def test_kg_helpers_match_jax():
@@ -105,8 +133,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "camouflage_multimodal_tpu"))
-assert len(names) >= 16, names
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "camouflage_multimodal_tpu"))
+assert len(names) >= 21, names
+for needed in ("train.train_fusion", "train.losses", "train.schedules", "train.state"):
+    assert pkg.__name__ + "." + needed in names, needed
 print("BAD", bad)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -101,3 +101,105 @@ def test_slic_on_card_matches_cpu(dev):
     want = S.slic(imgs.cpu(), n_segments=100)[0].numpy()
     assert (got == want).mean() >= 0.995
     assert np.isin(got, np.arange(got.max() + 1)).all()
+
+
+def _mha_case(dev, nq, nk, e, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = 3
+    q = torch.randn(B, nq, e, generator=g, device=dev)
+    k = torch.randn(B, nk, e, generator=g, device=dev)
+    v = torch.randn(B, nk, e, generator=g, device=dev)
+    mask = torch.arange(nk, device=dev)[None] < torch.tensor([[nk], [max(1, nk - 3)], [0]],
+                                                             device=dev)
+    params = {n: (torch.randn(e, e, generator=g, device=dev) / e ** 0.5 if n[0] == "w"
+                  else 0.1 * torch.randn(e, generator=g, device=dev))
+              for n in A.PARAM_NAMES}
+    d_out = torch.randn(B, nq, e, generator=g, device=dev)
+    d_probs = torch.randn(B, nq, nk, generator=g, device=dev)
+    return params, q, k, v, mask, d_out, d_probs
+
+
+@pytest.mark.parametrize("with_probs", [True, False])
+@pytest.mark.parametrize("nq,nk,e,heads", [(576, 13, 256, 8), (13, 576, 256, 8),
+                                           (70, 1, 64, 4), (33, 700, 128, 8)])
+def test_fused_mha_bwd_kernel_matches_plain(dev, nq, nk, e, heads, with_probs):
+    """Kernel B3 through ``torch.autograd`` against its plain backward at
+    1e-4 (tests/test_pallas.py:98-103), with a partly and a fully masked
+    batch row, a live or an absent cotangent for the attention maps, and a
+    repeat that must be bit-equal (every sum in a fixed order)."""
+    params, q, k, v, mask, d_out, d_probs = _mha_case(dev, nq, nk, e, nq * nk)
+    d_probs = d_probs if with_probs else None
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, *(params[n] for n in A.PARAM_NAMES))]
+
+    def grads():
+        lq, lk, lv, *lw = leaves
+        out, probs = A.fused_mha(dict(zip(A.PARAM_NAMES, lw)), lq, lk, lv, heads, mask)
+        if d_probs is None:
+            return torch.autograd.grad([out], leaves, [d_out])
+        return torch.autograd.grad([out, probs], leaves, [d_out, d_probs])
+
+    before = kernels.LAUNCHES["fused_mha_bwd"]
+    got = grads()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_mha_bwd"] == before + 1
+    d_params, d_q, d_k, d_v = A.multihead_attention_backward(
+        params, q, k, v, heads, mask, d_out, d_probs)
+    want = (d_q, d_k, d_v, *(d_params[n] for n in A.PARAM_NAMES))
+    for name, a, b in zip(("d_q", "d_k", "d_v") + A.PARAM_NAMES, got, want):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=lambda m: f"{name}: {m}")
+    for a, b in zip(got, grads()):
+        assert torch.equal(a, b)
+
+
+def test_fused_mha_bwd_shared_key_value_and_strided_cotangent(dev):
+    """The fusion passes one tensor as key and value (autograd adds d_k and
+    d_v) and autograd may hand the backward a strided ``d_out``."""
+    params, q, k, _, mask, _, _ = _mha_case(dev, 40, 13, 64, 5)
+    kk = k.clone().requires_grad_()
+    out, _ = A.fused_mha(params, q, kk, kk, 4, mask)
+    weight = torch.randn(out.shape[0], out.shape[2], out.shape[1], device=dev).transpose(1, 2)
+    (got,) = torch.autograd.grad((out * weight).sum(), [kk])
+    d_params, _, d_k, d_v = A.multihead_attention_backward(
+        params, q, k, k, 4, mask, weight.contiguous(), None)
+    torch.testing.assert_close(got, d_k + d_v, rtol=1e-4, atol=1e-4)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One ``FusionTrainer`` step at full width (forward B2, backward B3)
+    against the CPU port from the same weights: loss 1e-4 relative, every
+    parameter gradient within rtol 1e-3 / atol 1e-5 (float32 sums in
+    another order). Gradients, not stepped parameters, are compared: Adam's
+    first update is lr * sign(g), which turns rounding noise around g = 0
+    into full steps."""
+    from camouflage_multimodal_tpu_torch.train.state import make_adamw
+    from camouflage_multimodal_tpu_torch.train.train_fusion import FusionTrainer
+
+    rng = np.random.default_rng(3)
+    batch = {"rg": rng.standard_normal((4, 576, 128)).astype(np.float32),
+             "rg_mask": np.arange(576)[None] < np.array([[576], [500], [431], [380]]),
+             "kg": rng.standard_normal((4, 13, 128)).astype(np.float32),
+             "y": np.array([0, 1, 1, 0]), "edge": np.array([0, 1, 1, 0], np.float32),
+             "score": np.array([0.1, 0.8, 0.6, 0.0], np.float32)}
+    results = {}
+    for device in ("cpu", "cuda"):
+        trainer = FusionTrainer(model_config={"dropout": 0.0, "use_pallas": True})
+        trainer.model.reset_parameters(torch.Generator().manual_seed(0))
+        trainer.model.to(device).train()
+        trainer.optimizer = make_adamw(trainer.model.parameters(), trainer.weight_decay)
+        on_dev = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        kernels.reset_launches()
+        out = trainer.model(on_dev["rg"], on_dev["kg"], rg_mask=on_dev["rg_mask"])
+        loss = trainer.batch_loss(out, on_dev)
+        loss.backward()
+        grads = {k: p.grad.cpu() for k, p in trainer.model.named_parameters()}
+        trainer.model.zero_grad()
+        stepped, _ = trainer.train_step(on_dev, 5e-4)
+        assert float(stepped) == float(loss.detach())
+        results[device] = (float(loss), grads, dict(kernels.LAUNCHES))
+    assert results["cuda"][2] == {"slic_assign": 0, "fused_mha": 4, "fused_mha_bwd": 4}
+    assert results["cpu"][2] == {"slic_assign": 0, "fused_mha": 0, "fused_mha_bwd": 0}
+    assert abs(results["cuda"][0] - results["cpu"][0]) <= 1e-4 * abs(results["cpu"][0])
+    for key, want in results["cpu"][1].items():
+        torch.testing.assert_close(results["cuda"][1][key], want, rtol=1e-3, atol=1e-5,
+                                   msg=lambda m: f"{key}: {m}")
