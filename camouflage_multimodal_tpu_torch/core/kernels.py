@@ -37,11 +37,13 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each library's launcher (pointers, then sizes, then stream).
 _SIGNATURES = {
-    # pix, centers, prev, out, batch, hw, k, ratio, step, stream
-    "slic_assign": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # pix, centers, prev, out, batch, height, width, tile_w, k, ratio, step,
+    # stream
+    "slic_assign": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, mask, wq, bq, wk, bk, wv, bv, wo, bo, qp, kp, vp, ctx, out,
-    # probs, batch, nq, nk, e, heads, scale, stream
-    "fused_mha": [_P] * 18 + [_I] * 5 + [_F, _P],
+    # probs, attn_scratch (or null), batch, nq, nk, e, heads, key_chunks,
+    # scale, stream
+    "fused_mha": [_P] * 19 + [_I] * 6 + [_F, _P],
     # q, k, v, mask, wq, wk, wv, wo, qp, kp, vp, ctx, d_out, d_probs (or
     # null); scratch d_ctx, d_qp, d_kp, d_vp, p_heads, ds_heads, w_partial;
     # d_q, d_k, d_v, d_wq, d_bq, d_wk, d_bk, d_wv, d_bv, d_wo, d_bo; batch,
@@ -134,8 +136,11 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_handle(t: torch.Tensor) -> int:
+    """The current stream of the CUDA tensor's device, as the integer a
+    launcher takes (read without building a ``torch.cuda.Stream``: the
+    wrappers run many times per batch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda_inputs(what: str, device: torch.device, **tensors) -> None:

@@ -1,0 +1,191 @@
+// One output tile of  y = x @ w + bias  on the tensor cores at float32
+// accuracy ("3xTF32"), for the attention kernels of this directory.
+//
+// x (rows, depth), w (depth, n), y (rows, n) row-major float32; bias (n,) or
+// null. TF32 keeps 10 mantissa bits, about three decimal digits, and the
+// models here are float32 throughout, so each operand is split into a TF32
+// head and a TF32 tail, a = a_hi + a_lo with a_hi = tf32(a) and
+// a_lo = tf32(a - a_hi), and every product is taken as three
+// mma.sync.m16n8k8 TF32 instructions:
+//   tail += a_lo * b_hi;  tail += a_hi * b_lo;  acc += (0 + a_hi * b_hi).
+// The dropped a_lo * b_lo term is below 2^-22 relative. The tensor core
+// truncates when it adds into its accumulator, which over the 32 depth
+// steps of a 256-deep product would cost a few units in the sixth digit, so
+// the leading term of each depth step is taken into a zeroed accumulator
+// and added to the running sum by an ordinary round-to-nearest float32 add;
+// the two small terms (2^-11 of the result) stay in a tensor-core
+// accumulator of their own and join at the end. (With all three terms in
+// one tensor-core accumulator the attention output was off by 1.3e-5 to
+// 2.8e-5 from the float32 reference on an NVIDIA H100; this way by 2.9e-6
+// at most, as the CUDA-core version was.) Sums run in a fixed order, so a
+// repeat is bit-equal.
+//
+// A block of 128 threads (2 x 2 warps) owns a 32 x BN tile (BN = 64 or 32),
+// each warp 16 rows x BN/2 columns. Operand tiles of depth 32 reach shared
+// memory by 16-byte cp.async copies (zero-filled outside the matrices)
+// through a ring of three stages; row strides of 36 and BN + 8 floats keep
+// the fragment loads of a warp on 32 different banks.
+// Requires depth % 4 == 0, n % 4 == 0 and 16-byte aligned x, w, y.
+//
+// What bounds it at the attention shapes (2,560 x 256 x 256, 336 tiles; H100
+// 80GB HBM3, 700 W): with the loads alone the kernel takes 9 us (every row
+// tile reads its 64 columns of w again, 32 MB from L2 in all), with the
+// arithmetic alone 11 us (splitting takes more instruction slots than the mma:
+// a warp splits 12 values for 12 mma), together 16 us; the mma
+// instructions themselves are 4 us of that. Wider warp tiles (fewer splits
+// and fewer bytes per mma) are the next step.
+#pragma once
+
+#include <cuda_runtime.h>
+
+// Measurement only (measure_kernels.py builds these to see what bounds the
+// kernel; results are wrong): 1 = no mma, 2 = loads only, 3 = no loads.
+#ifndef GEMM3_VARIANT
+#define GEMM3_VARIANT 0
+#endif
+
+namespace gemm3 {
+
+constexpr int kBM = 32;        // rows of a block's tile
+constexpr int kBK = 32;        // depth of one stage
+constexpr int kStages = 3;
+constexpr int kThreads = 128;
+constexpr int kXStride = kBK + 4;
+
+template <int BN>
+struct Smem {
+  static constexpr int kWStride = BN + 8;
+  float x[kStages][kBM * kXStride];
+  float w[kStages][kBK * kWStride];
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// TF32 head and tail of a finite float32 value. The head is rounded to
+// nearest (ties away from zero) with two integer instructions: cvt.rna.tf32
+// computes the same but runs at a quarter of their rate, and at twelve
+// conversions per three mma it bound the first version of this GEMM. The
+// tail v - head is exact in float32; the tensor core reads its upper 19 bits.
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int BN>
+__device__ __forceinline__ void load_stage(Smem<BN>& s, int stage, const float* __restrict__ x,
+                                           const float* __restrict__ w, int rows, int depth,
+                                           int n, int row0, int col0, int k0) {
+  constexpr int kWStride = Smem<BN>::kWStride;
+#if GEMM3_VARIANT == 3
+  if (k0 >= 0) return;
+#endif
+  for (int i = threadIdx.x; i < kBM * kBK / 4; i += kThreads) {
+    const int r = i / (kBK / 4), c = (i % (kBK / 4)) * 4;
+    const int gr = row0 + r, gk = k0 + c;
+    const bool valid = gr < rows && gk < depth;
+    cp_async16(&s.x[stage][r * kXStride + c],
+               valid ? x + static_cast<size_t>(gr) * depth + gk : x, valid);
+  }
+  for (int i = threadIdx.x; i < kBK * BN / 4; i += kThreads) {
+    const int kk = i / (BN / 4), c = (i % (BN / 4)) * 4;
+    const int gk = k0 + kk, gc = col0 + c;
+    const bool valid = gk < depth && gc < n;
+    cp_async16(&s.w[stage][kk * kWStride + c],
+               valid ? w + static_cast<size_t>(gk) * n + gc : w, valid);
+  }
+}
+
+// The tile of y at (row0, col0). Every thread of the block must call it.
+template <int BN>
+__device__ void tile(Smem<BN>& s, const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ y, int rows,
+                     int depth, int n, int row0, int col0) {
+  constexpr int kWStride = Smem<BN>::kWStride;
+  constexpr int kNT = BN / 16;   // 8-column mma tiles of one warp
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int wrow = (warp / 2) * 16, wcol = (warp % 2) * (BN / 2);
+  float acc[kNT][4] = {}, tail[kNT][4] = {};
+
+  const int steps = (depth + kBK - 1) / kBK;
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < steps) load_stage<BN>(s, st, x, w, rows, depth, n, row0, col0, st * kBK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < steps; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // stage kt has landed; stage kt - 1 is free again
+    const int next = kt + kStages - 1;
+    if (next < steps) load_stage<BN>(s, next % kStages, x, w, rows, depth, n, row0, col0, next * kBK);
+    cp_async_commit();
+
+    const float* xs = s.x[kt % kStages];
+    const float* ws = s.w[kt % kStages];
+#if GEMM3_VARIANT == 2
+    if (kt >= 0) continue;
+#endif
+#pragma unroll
+    for (int k8 = 0; k8 < kBK; k8 += 8) {
+      unsigned a_hi[4], a_lo[4];
+      split_tf32(xs[(wrow + g) * kXStride + k8 + tig], a_hi[0], a_lo[0]);
+      split_tf32(xs[(wrow + g + 8) * kXStride + k8 + tig], a_hi[1], a_lo[1]);
+      split_tf32(xs[(wrow + g) * kXStride + k8 + tig + 4], a_hi[2], a_lo[2]);
+      split_tf32(xs[(wrow + g + 8) * kXStride + k8 + tig + 4], a_hi[3], a_lo[3]);
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        unsigned b_hi[2], b_lo[2];
+        const int c = wcol + nt * 8 + g;
+        split_tf32(ws[(k8 + tig) * kWStride + c], b_hi[0], b_lo[0]);
+        split_tf32(ws[(k8 + tig + 4) * kWStride + c], b_hi[1], b_lo[1]);
+#if GEMM3_VARIANT == 1
+        acc[nt][0] += __uint_as_float(a_lo[0] ^ a_lo[1] ^ a_lo[2] ^ a_lo[3] ^ a_hi[0] ^ a_hi[1] ^
+                                      a_hi[2] ^ a_hi[3] ^ b_lo[0] ^ b_lo[1] ^ b_hi[0] ^ b_hi[1]);
+#else
+        mma_tf32(tail[nt], a_lo, b_hi);
+        mma_tf32(tail[nt], a_hi, b_lo);
+        float head[4] = {};
+        mma_tf32(head, a_hi, b_hi);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] += head[i];
+#endif
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int c = col0 + wcol + nt * 8 + 2 * tig;   // even; n % 4 == 0, so c + 1 < n too
+    if (c >= n) continue;
+    const float b0 = bias ? bias[c] : 0.f, b1 = bias ? bias[c + 1] : 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row0 + wrow + g + half * 8;
+      if (r >= rows) continue;
+      *reinterpret_cast<float2*>(y + static_cast<size_t>(r) * n + c) =
+          make_float2(acc[nt][2 * half] + tail[nt][2 * half] + b0,
+                      acc[nt][2 * half + 1] + tail[nt][2 * half + 1] + b1);
+    }
+  }
+}
+
+}  // namespace gemm3

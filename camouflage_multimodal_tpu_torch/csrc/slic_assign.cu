@@ -17,16 +17,45 @@
 //
 // Bound on this card: the required work is small (bytes: 20 B of features
 // plus 4 B of prev read and 4 B written per pixel; operations: ~16 flops for
-// each pixel-center pair inside the box, a handful per pixel), but the
-// all-K sweep issues K box tests per pixel, so the kernel is bound by
-// instruction issue of that loop (K = 529 at 256^2 / 500 segments). Design:
-// one thread per pixel, grid (pixel blocks, batch); the image's K centers
-// (5 floats plus the floored (cy, cx) as ints, 28 B each, 15 KB at K = 529)
-// are staged once per block in shared memory, and every thread of a warp
-// reads the same center at the same time (a broadcast, no bank conflicts).
-// The box test runs first and skips the distance for the ~99% of centers
-// outside the box. Pruning centers per pixel tile is left for later work.
+// each pixel-center pair inside the box, about 4 per pixel), so the byte
+// bound is what a design can approach; what it must avoid is issuing a box
+// test per pixel for each of the K centers (K = 529 at 256^2 / 500
+// segments), which bound the first design. Design: a block of 256 threads
+// owns a 2-D tile of pixels (tile_w x 256/tile_w; 16 x 16 on the main
+// path), one thread per pixel, grid (tiles, batch).
+//   1. The block takes the bounding box of its pixels' (y, x) features (a
+//      warp min/max and one barrier), so the pruning is right for whatever
+//      positions the features hold; the width argument only shapes the tile.
+//   2. It scans the image's K centers cooperatively (every thread looks at
+//      the floored position of up to four, their loads in flight together)
+//      and keeps those that lie within the box grown by step on every side:
+//      a superset of every center that any pixel of the tile has in its own
+//      box, at any center drift. Kept centers are compacted into shared
+//      memory IN ASCENDING ID ORDER (warp ballot + prefix count over the
+//      warps' totals, no atomics): the first design's 7 values and the id,
+//      K x 32 B, since the list must be able to hold all K (centers may
+//      collapse into one tile). At step 11 a 16 x 16 tile lists about 11 of
+//      529 (16 at most on seed and converged centers).
+//   3. Each thread runs the first design's loop, unchanged in arithmetic,
+//      over the list: the per-pixel box test, then the distance, `d < best`
+//      strict. Because the list is in ascending id order, the lowest id
+//      still wins a tie.
+// 32 registers a thread keep 8 blocks on an SM, so the 1,024 blocks of a
+// batch of four 256^2 images are one wave. Pixels of a ragged edge (image
+// sides that are no multiple of the tile) are masked.
+// Loads: features are an array of 20-byte structures; a tile row is one
+// contiguous run (16 px x 20 B = 320 B), which a warp reads as five strided
+// scalar loads over the same 128-byte lines: the lines come from device
+// memory once and the four later loads hit L1, so a staged 16-byte load
+// would save instruction slots only. Staging was tried where it looked most
+// promising, on the centers (a coalesced copy of all K x 20 B into shared
+// memory, started with the pixel loads, the scan and the loop reading the
+// copy): it took 14.5 us a launch against 11.4 us for this version (four
+// 256^2 images, NVIDIA H100 80GB HBM3 at 700 W), since
+// each block then moves 10.6 KB instead of the 4.2 KB of positions, so the
+// pixel loads were left as they are.
 
+#include <limits.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -34,12 +63,13 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRounds = 4;   // centers a thread looks at in one pass of the scan
 
-__global__ void slic_assign_kernel(const float* __restrict__ pix,
-                                   const float* __restrict__ centers,
-                                   const int* __restrict__ prev,
-                                   int* __restrict__ out, int hw, int k_count,
-                                   float ratio, int step) {
+__global__ void __launch_bounds__(kThreads, 2048 / kThreads)   // 32 registers: 8 blocks an SM
+slic_assign_kernel(const float* __restrict__ pix, const float* __restrict__ centers,
+                   const int* __restrict__ prev, int* __restrict__ out, int height, int width,
+                   int tile_w, int tiles_x, int k_count, float ratio, int step) {
   extern __shared__ float smem[];
   float* c_l = smem;
   float* c_a = c_l + k_count;
@@ -48,44 +78,105 @@ __global__ void slic_assign_kernel(const float* __restrict__ pix,
   float* c_x = c_y + k_count;
   int* c_fy = reinterpret_cast<int*>(c_x + k_count);
   int* c_fx = c_fy + k_count;
+  int* c_id = c_fx + k_count;
+  __shared__ int s_box[4][kWarps];
+  __shared__ int s_count[kRounds][kWarps];
 
   const int b = blockIdx.y;
-  const float* cb = centers + static_cast<size_t>(b) * k_count * 5;
-  for (int k = threadIdx.x; k < k_count; k += blockDim.x) {
-    const float* c = cb + static_cast<size_t>(k) * 5;
-    c_l[k] = c[0];
-    c_a[k] = c[1];
-    c_b[k] = c[2];
-    c_y[k] = c[3];
-    c_x[k] = c[4];
-    c_fy[k] = static_cast<int>(floorf(c[3]));
-    c_fx[k] = static_cast<int>(floorf(c[4]));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tile_h = kThreads / tile_w;
+  const int y = (blockIdx.x / tiles_x) * tile_h + threadIdx.x / tile_w;
+  const int x = (blockIdx.x % tiles_x) * tile_w + threadIdx.x % tile_w;
+  const bool active = y < height && x < width;
+  const size_t gp = static_cast<size_t>(b) * height * width + static_cast<size_t>(y) * width + x;
+
+  float pl = 0.f, pa = 0.f, pb = 0.f, py = 0.f, px = 0.f;
+  int iy = 0, ix = 0;
+  if (active) {
+    const float* f = pix + gp * 5;
+    pl = f[0], pa = f[1], pb = f[2], py = f[3], px = f[4];
+    iy = static_cast<int>(py), ix = static_cast<int>(px);
+  }
+
+  // 1. Bounding box of the tile's pixel positions.
+  const int y_lo = __reduce_min_sync(0xffffffffu, active ? iy : INT_MAX);
+  const int y_hi = __reduce_max_sync(0xffffffffu, active ? iy : INT_MIN);
+  const int x_lo = __reduce_min_sync(0xffffffffu, active ? ix : INT_MAX);
+  const int x_hi = __reduce_max_sync(0xffffffffu, active ? ix : INT_MIN);
+  if (lane == 0) {
+    s_box[0][warp] = y_lo, s_box[1][warp] = y_hi, s_box[2][warp] = x_lo, s_box[3][warp] = x_hi;
   }
   __syncthreads();
+  int box_y0 = INT_MAX, box_y1 = INT_MIN, box_x0 = INT_MAX, box_x1 = INT_MIN;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    box_y0 = min(box_y0, s_box[0][w]), box_y1 = max(box_y1, s_box[1][w]);
+    box_x0 = min(box_x0, s_box[2][w]), box_x1 = max(box_x1, s_box[3][w]);
+  }
+  // A block always holds an active pixel, so the box is real and these stay
+  // far from the ends of int.
+  box_y0 -= step, box_y1 += step, box_x0 -= step, box_x1 += step;
 
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= hw) return;
-  const size_t gp = static_cast<size_t>(b) * hw + p;
-  const float* f = pix + gp * 5;
-  const float pl = f[0], pa = f[1], pb = f[2], py = f[3], px = f[4];
-  const int iy = static_cast<int>(py), ix = static_cast<int>(px);
+  // 2. Candidate centers, compacted in ascending id order. A pass covers
+  //    kRounds * 256 centers (one pass at any K the pipeline uses); thread
+  //    tid looks at center tid + 256 r in round r. The rounds' position
+  //    loads are independent and in flight together; a kept center is read
+  //    again (from L1) when it is written to the list, so that no round's
+  //    values are held in registers across the barrier.
+  const float* cb = centers + static_cast<size_t>(b) * k_count * 5;
+  int listed = 0;
+  for (int k0 = 0; k0 < k_count; k0 += kThreads * kRounds) {
+    unsigned kept[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int k = k0 + r * kThreads + threadIdx.x;
+      bool keep = false;
+      if (k < k_count) {
+        const int fy = __float2int_rd(cb[static_cast<size_t>(k) * 5 + 3]);   // floor, saturating
+        const int fx = __float2int_rd(cb[static_cast<size_t>(k) * 5 + 4]);
+        keep = fy >= box_y0 && fy <= box_y1 && fx >= box_x0 && fx <= box_x1;
+      }
+      kept[r] = __ballot_sync(0xffffffffu, keep);
+      if (lane == 0) s_count[r][warp] = __popc(kept[r]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      int before = listed;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        if (w < warp) before += s_count[r][w];
+        listed += s_count[r][w];
+      }
+      if ((kept[r] >> lane) & 1u) {
+        const int k = k0 + r * kThreads + threadIdx.x;
+        const float* c = cb + static_cast<size_t>(k) * 5;
+        const int at = before + __popc(kept[r] & ((1u << lane) - 1u));
+        c_l[at] = c[0], c_a[at] = c[1], c_b[at] = c[2], c_y[at] = c[3], c_x[at] = c[4];
+        c_fy[at] = __float2int_rd(c[3]), c_fx[at] = __float2int_rd(c[4]), c_id[at] = k;
+      }
+    }
+    __syncthreads();   // s_count is rewritten by the next pass; the list is read below
+  }
 
+  // 3. The assignment over the list.
+  if (!active) return;
   float best = INFINITY;
   int label = -1;
-  for (int k = 0; k < k_count; ++k) {
-    if (abs(iy - c_fy[k]) > step || abs(ix - c_fx[k]) > step) continue;
-    const float ey = __fsub_rn(py, c_y[k]);
-    const float ex = __fsub_rn(px, c_x[k]);
+  for (int i = 0; i < listed; ++i) {
+    if (abs(iy - c_fy[i]) > step || abs(ix - c_fx[i]) > step) continue;
+    const float ey = __fsub_rn(py, c_y[i]);
+    const float ex = __fsub_rn(px, c_x[i]);
     float d = __fmul_rn(ratio, __fadd_rn(__fmul_rn(ey, ey), __fmul_rn(ex, ex)));
-    const float el = __fsub_rn(pl, c_l[k]);
+    const float el = __fsub_rn(pl, c_l[i]);
     d = __fadd_rn(d, __fmul_rn(el, el));
-    const float ea = __fsub_rn(pa, c_a[k]);
+    const float ea = __fsub_rn(pa, c_a[i]);
     d = __fadd_rn(d, __fmul_rn(ea, ea));
-    const float eb = __fsub_rn(pb, c_b[k]);
+    const float eb = __fsub_rn(pb, c_b[i]);
     d = __fadd_rn(d, __fmul_rn(eb, eb));
-    if (d < best) {  // strict: the lowest id wins a tie
+    if (d < best) {  // strict, and ids ascend along the list: the lowest id wins a tie
       best = d;
-      label = k;
+      label = c_id[i];
     }
   }
   out[gp] = label >= 0 ? label : prev[gp];
@@ -95,18 +186,24 @@ __global__ void slic_assign_kernel(const float* __restrict__ pix,
 
 CMT_DEFINE_ERROR_STRING
 
-// pix (B, HW, 5) float32 (L, a, b, y, x); centers (B, K, 5) float32;
-// prev, out (B, HW) int32. All contiguous, on the current device.
+// pix (B, H*W, 5) float32 (L, a, b, y, x), pixel p of an image at row
+// p / width, column p % width; centers (B, K, 5) float32; prev, out (B, H*W)
+// int32. All contiguous, on the current device. tile_w divides 256: a block
+// owns tile_w x (256 / tile_w) pixels.
 CMT_EXPORT int slic_assign(const float* pix, const float* centers,
-                           const int* prev, int* out, int batch, int hw,
-                           int k_count, float ratio, int step, void* stream) {
-  const size_t smem = static_cast<size_t>(k_count) * 7 * sizeof(float);
+                           const int* prev, int* out, int batch, int height,
+                           int width, int tile_w, int k_count, float ratio,
+                           int step, void* stream) {
+  if (tile_w <= 0 || kThreads % tile_w) return static_cast<int>(cudaErrorInvalidValue);
+  const int tile_h = kThreads / tile_w;
+  const int tiles_x = (width + tile_w - 1) / tile_w;
+  const int tiles_y = (height + tile_h - 1) / tile_h;
+  const size_t smem = static_cast<size_t>(k_count) * 8 * sizeof(float);
   int rc = cmt_set_smem(slic_assign_kernel, smem);
   if (rc != 0) return rc;
-  dim3 grid((hw + kThreads - 1) / kThreads, batch);
-  slic_assign_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      pix, centers, prev, out, hw, k_count, ratio, step);
+  dim3 grid(tiles_x * tiles_y, batch);
+  slic_assign_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      pix, centers, prev, out, height, width, tile_w, tiles_x, k_count, ratio, step);
   CMT_CHECK_LAUNCH();
   return 0;
 }

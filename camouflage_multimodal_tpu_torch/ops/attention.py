@@ -35,6 +35,10 @@ _NEG_INF = -1e30
 _MAX_SMEM_BYTES = 232448   # a Hopper block's dynamic shared memory, opted in
 PARAM_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
 _WEIGHT_NAMES = ("wq", "wk", "wv", "wo")
+# B2's attention pass: up to _SHORT_KEYS keys go through the short-key kernel,
+# more are split into chunks of _KEY_CHUNK keys (csrc/fused_mha.cu).
+_SHORT_KEYS = 32
+_KEY_CHUNK = 64
 # Query splits of B3's per-key reduction: warps = heads * splits <= 32.
 _BWD_KEY_SPLITS = 4
 # Row splits of B3's weight-gradient GEMMs (partials summed in split order).
@@ -144,10 +148,12 @@ def multihead_attention_backward(params: Params, query: torch.Tensor,
 
 def _check_cuda_inputs(params: Params, query, key, value, num_heads, key_mask,
                        backward: bool = False):
-    """What the kernels take: float32, contiguous, one CUDA device, at most
-    32 heads of at most 32 dims, (B, Nk) bool mask, and a block's shared
+    """What the kernels take: float32, contiguous, 16-byte aligned, one CUDA
+    device, at most 32 heads of at most 32 dims with E and the head size
+    multiples of 4 (16-byte loads), (B, Nk) bool mask, and a block's shared
     memory holding one row (two for the backward) of E floats and of every
-    head's Nk probabilities."""
+    head's Nk probabilities. Returns the data pointers of query, key, value
+    and the parameters in ``PARAM_NAMES`` order."""
     B, Nq, E = query.shape
     Nk = key.shape[1]
     if key.shape != (B, Nk, E) or value.shape != (B, Nk, E):
@@ -156,47 +162,81 @@ def _check_cuda_inputs(params: Params, query, key, value, num_heads, key_mask,
     if E % num_heads or E // num_heads > 32 or num_heads > 32:
         raise ValueError(f"fused_mha: E={E} must split into {num_heads} heads "
                          "of at most 32 dims, with at most 32 heads")
+    if E % 4 or (E // num_heads) % 4:
+        raise ValueError(f"fused_mha: E={E} and the head size {E // num_heads} "
+                         "must be multiples of 4")
     if (1 + backward) * (E + num_heads * Nk) * 4 > _MAX_SMEM_BYTES:
         raise ValueError(f"fused_mha: {num_heads} heads x Nk={Nk} probabilities "
                          "exceed a block's shared memory")
     if key_mask.shape != (B, Nk) or key_mask.dtype != torch.bool:
         raise ValueError("fused_mha: key_mask must be a (B, Nk) bool tensor")
-    tensors = {"query": query, "key": key, "value": value,
-               **{n: params[n] for n in PARAM_NAMES}}
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_mha: {name} must be float32, got {t.dtype}")
-    for n in PARAM_NAMES:
+    index = query.get_device()
+    weights = [params[n] for n in PARAM_NAMES]
+    for n, t in zip(PARAM_NAMES, weights):
         want = (E, E) if n in _WEIGHT_NAMES else (E,)
-        if params[n].shape != want:
+        if t.shape != want:
             raise ValueError(f"fused_mha: {n} must be {want}")
-    kernels.require_cuda_inputs("fused_mha", query.device, key_mask=key_mask,
-                                **tensors)
+    pointers = []
+    for n, t in zip(("query", "key", "value") + PARAM_NAMES, [query, key, value] + weights):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_mha: {n} must be float32, got {t.dtype}")
+        if t.get_device() != index:
+            raise ValueError(f"fused_mha: {n} is on {t.device}, expected {query.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_mha: {n} must be contiguous")
+        pointers.append(t.data_ptr())
+        if pointers[-1] % 16:
+            raise ValueError(f"fused_mha: {n} must be 16-byte aligned")
+    if key_mask.get_device() != index or not key_mask.is_contiguous():
+        raise ValueError(f"fused_mha: key_mask must be contiguous on {query.device}")
+    return pointers
 
 
-def _launch_forward(params: Params, query, key, value, num_heads, key_mask):
+def _key_chunks(Nk: int, E: int, num_heads: int) -> int:
+    """How kernel B2 takes the keys: 0 = the short-key pass (every key and
+    value of a batch row, projected, in one block's shared memory beside the
+    rows of its 8 warps); otherwise the number of ``_KEY_CHUNK``-key chunks
+    of the split pass."""
+    padded = num_heads * (E // num_heads + 1)
+    short_floats = Nk * (E + padded) + 8 * (padded + Nk * num_heads)
+    if Nk <= _SHORT_KEYS and short_floats * 4 <= _MAX_SMEM_BYTES:
+        return 0
+    return -(-Nk // _KEY_CHUNK)
+
+
+def _launch_forward(params: Params, query, key, value, num_heads, key_mask,
+                    keep_saved: bool = True):
     """Kernel B2. Returns (out, probs, (qp, kp, vp, ctx)): the projected
     queries, keys, values and the head-concatenated context it wrote on the
-    way, which the backward reuses."""
-    _check_cuda_inputs(params, query, key, value, num_heads, key_mask)
+    way, which the backward reuses; ``()`` instead when ``keep_saved`` is
+    false. Those four and the split pass's scratch share one allocation
+    that the call owns."""
+    pointers = _check_cuda_inputs(params, query, key, value, num_heads, key_mask)
     B, Nq, E = query.shape
     Nk = key.shape[1]
-    qp = torch.empty_like(query)
-    kp = torch.empty_like(key)
-    vp = torch.empty_like(value)
-    ctx = torch.empty_like(query)
+    dev = query.device
+    chunks = _key_chunks(Nk, E, num_heads)
+    n_q, n_k = B * Nq * E, B * Nk * E                 # multiples of 4: the parts stay aligned
+    n_attn = B * num_heads * Nq * (Nk + chunks * (2 + E // num_heads)) if chunks else 0
+    buf = torch.empty(2 * n_q + 2 * n_k + n_attn, dtype=torch.float32, device=dev)
     out = torch.empty_like(query)
-    probs = torch.empty(B, Nq, Nk, dtype=torch.float32, device=query.device)
+    probs = torch.empty((B, Nq, Nk), dtype=torch.float32, device=dev)
+    qp = buf.data_ptr()
+    ctx, kp, vp = qp + 4 * n_q, qp + 8 * n_q, qp + 8 * n_q + 4 * n_k
     lib = kernels.library("fused_mha")
-    p = kernels.ptr
-    rc = lib.fused_mha(p(query), p(key), p(value), p(key_mask),
-                       *(p(params[n]) for n in PARAM_NAMES),
-                       p(qp), p(kp), p(vp), p(ctx), p(out), p(probs),
-                       B, Nq, Nk, E, num_heads, _scale(E // num_heads),
-                       kernels.stream_of(query))
-    kernels.check(lib, rc, "fused_mha")
+    rc = lib.fused_mha(*pointers[:3], key_mask.data_ptr(), *pointers[3:],
+                       qp, kp, vp, ctx, out.data_ptr(), probs.data_ptr(),
+                       vp + 4 * n_k if chunks else None,
+                       B, Nq, Nk, E, num_heads, chunks, _scale(E // num_heads),
+                       kernels.stream_handle(query))
+    if rc:
+        kernels.check(lib, rc, "fused_mha")
     kernels.LAUNCHES["fused_mha"] += 1
-    return out, probs, (qp, kp, vp, ctx)
+    if not keep_saved:
+        return out, probs, ()
+    parts = buf.split_with_sizes([n_q, n_q, n_k, n_k, n_attn])
+    return out, probs, (parts[0].view(B, Nq, E), parts[2].view(B, Nk, E),
+                        parts[3].view(B, Nk, E), parts[1].view(B, Nq, E))
 
 
 def _launch_backward(params: Params, query, key, value, num_heads, key_mask,
@@ -243,7 +283,7 @@ def _launch_backward(params: Params, query, key, value, num_heads, key_mask,
         p(d_ctx), p(d_qp), p(d_kp), p(d_vp), p(p_heads), p(ds_heads), p(w_partial),
         p(d_q), p(d_k), p(d_v), *(p(d_params[n]) for n in PARAM_NAMES),
         B, Nq, Nk, E, num_heads, key_splits, _BWD_WEIGHT_SPLITS,
-        _scale(E // num_heads), kernels.stream_of(query))
+        _scale(E // num_heads), kernels.stream_handle(query))
     kernels.check(lib, rc, "fused_mha_bwd")
     kernels.LAUNCHES["fused_mha_bwd"] += 1
     return d_params, d_q, d_k, d_v
@@ -302,5 +342,6 @@ def fused_mha(params: Params, query: torch.Tensor, key: torch.Tensor,
                               *(params[n] for n in PARAM_NAMES))
     if query.device.type == "cpu":
         return multihead_attention(params, query, key, value, num_heads, key_mask)
-    out, probs, _ = _launch_forward(params, query, key, value, num_heads, key_mask)
+    out, probs, _ = _launch_forward(params, query, key, value, num_heads, key_mask,
+                                    keep_saved=False)
     return out, probs

@@ -7,7 +7,9 @@ position, lowest id wins ties, uncovered pixels keep their label).
 
 The assignment is kernel B1 (``csrc/slic_assign.cu``), the port of the
 Pallas kernel ``ops/pallas_slic.py:_assign_kernel``: every pixel scores ALL
-K centers under the box mask, which is exact at any center drift. The JAX
+K centers under the box mask, which is exact at any center drift (the
+kernel first prunes, per 2-D pixel tile, the centers no pixel of the tile
+can have in its box, which changes no result). The JAX
 main path runs a (2·radius+1)² candidate window instead; the two agree
 whenever the drift ratio this function returns is < 1 (see
 :func:`window_drift_bound`), so the port computes what the JAX main path
@@ -25,7 +27,7 @@ covering the whole batch.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -57,6 +59,8 @@ def window_drift_bound(step: int, radius: int = 2) -> int:
 # ---------------------------------------------------------------------------
 
 _CHUNK = 4096        # pixels per (B, chunk, K) distance block of the plain version
+_BLOCK = 256         # pixels (threads) of one block of kernel B1
+TILE_WIDTH = 16      # B1's pixel tile is TILE_WIDTH x (_BLOCK // TILE_WIDTH); divides _BLOCK
 COMPACTNESS = 10.0   # skimage's SLIC parameters, as the reference calls it
 SIGMA = 1.0
 
@@ -95,15 +99,45 @@ def slic_assign_plain(pix: torch.Tensor, centers: torch.Tensor,
     return out
 
 
+def tile_candidates(centers: torch.Tensor, step: int, height: int, width: int,
+                    tile: Tuple[int, int] = (16, 16)) -> torch.Tensor:
+    """Which centers kernel B1 lists for each pixel tile, in plain PyTorch.
+
+    centers (B, K, 5). ``tile`` is (rows, columns); tiles run row-major over
+    the (height, width) image, ragged at the far edges. Returns a
+    (B, tiles, K) bool tensor: center k is listed for a tile when its
+    floored position lies within the tile's pixel rectangle grown by
+    ``step`` on every side — a superset of every center that any pixel of
+    the tile has in its ±step box. The checks and the list-length report use
+    it; the kernel builds the same lists itself."""
+    th, tw = tile
+    dev = centers.device
+    y0 = torch.arange(0, height, th, device=dev)
+    x0 = torch.arange(0, width, tw, device=dev)
+    y1 = torch.clamp(y0 + th, max=height) - 1
+    x1 = torch.clamp(x0 + tw, max=width) - 1
+    fy = torch.floor(centers[..., 3])[:, None, None, :]       # (B, 1, 1, K)
+    fx = torch.floor(centers[..., 4])[:, None, None, :]
+    in_y = (fy >= (y0 - step)[None, :, None, None]) & (fy <= (y1 + step)[None, :, None, None])
+    in_x = (fx >= (x0 - step)[None, None, :, None]) & (fx <= (x1 + step)[None, None, :, None])
+    return (in_y & in_x).reshape(centers.shape[0], len(y0) * len(x0), centers.shape[1])
+
+
 def slic_assign(pix: torch.Tensor, centers: torch.Tensor, prev: torch.Tensor,
-                ratio: float, step: int) -> torch.Tensor:
+                ratio: float, step: int, width: Optional[int] = None) -> torch.Tensor:
     """SLIC assignment over all K centers with the ±step box (kernel B1).
 
     CPU tensors take :func:`slic_assign_plain`; CUDA tensors launch the
-    kernel; any other device raises."""
-    if pix.device.type == "cpu":
+    kernel; any other device raises. ``width`` is the image width when pixel
+    ``p`` of ``pix`` lies at row ``p // width``, column ``p % width``: the
+    kernel then prunes the centers per ``TILE_WIDTH`` × ``256 //
+    TILE_WIDTH`` pixel tile. It shapes the tiles only — the result is the
+    same for any ``width`` that divides HW, and without one the kernel takes
+    runs of 256 pixels. The plain version has no use for it."""
+    kind = pix.device.type
+    if kind == "cpu":
         return slic_assign_plain(pix, centers, prev, ratio, step)
-    if pix.device.type != "cuda":
+    if kind != "cuda":
         raise ValueError(f"slic_assign: unsupported device {pix.device}")
     B, HW, C = pix.shape
     if C != 5 or centers.dim() != 3 or centers.shape[0] != B or centers.shape[2] != 5:
@@ -113,16 +147,25 @@ def slic_assign(pix: torch.Tensor, centers: torch.Tensor, prev: torch.Tensor,
         raise ValueError(f"slic_assign: prev {tuple(prev.shape)} != {(B, HW)}")
     if pix.dtype != torch.float32 or centers.dtype != torch.float32 or prev.dtype != torch.int32:
         raise TypeError("slic_assign: pix/centers must be float32, prev int32")
-    kernels.require_cuda_inputs("slic_assign", pix.device, pix=pix,
-                                centers=centers, prev=prev)
-    K = centers.shape[1]
+    if width is None:
+        height, width, tile_w = 1, HW, _BLOCK
+    elif width <= 0 or HW % width:
+        raise ValueError(f"slic_assign: width {width} does not divide HW = {HW}")
+    else:
+        height, tile_w = HW // width, TILE_WIDTH
+    index = pix.get_device()
+    if centers.get_device() != index or prev.get_device() != index:
+        raise ValueError(f"slic_assign: centers and prev must be on {pix.device}")
+    if not (pix.is_contiguous() and centers.is_contiguous() and prev.is_contiguous()):
+        raise ValueError("slic_assign: pix, centers and prev must be contiguous")
     out = torch.empty_like(prev)
     lib = kernels.library("slic_assign")
-    rc = lib.slic_assign(kernels.ptr(pix), kernels.ptr(centers),
-                         kernels.ptr(prev), kernels.ptr(out),
-                         B, HW, K, float(ratio), int(step),
-                         kernels.stream_of(pix))
-    kernels.check(lib, rc, "slic_assign")
+    rc = lib.slic_assign(pix.data_ptr(), centers.data_ptr(), prev.data_ptr(),
+                         out.data_ptr(), B, height, width, tile_w,
+                         centers.shape[1], float(ratio), int(step),
+                         kernels.stream_handle(pix))
+    if rc:
+        kernels.check(lib, rc, "slic_assign")
     kernels.LAUNCHES["slic_assign"] += 1
     return out
 
@@ -194,9 +237,9 @@ def slic(images: torch.Tensor, n_segments: int = 500, num_iters: int = 10,
     maxd = torch.zeros(B, dtype=torch.float32, device=images.device)
     if num_iters > 0:
         for _ in range(num_iters - 1):
-            labels = slic_assign(pix, centers, labels, ratio, step)
+            labels = slic_assign(pix, centers, labels, ratio, step, width=W)
             centers = update_centers(pix, labels, centers)
             drift = torch.abs(centers[..., 3:5] - seed_pos).amax(dim=(1, 2))
             maxd = torch.maximum(maxd, drift * inv_bound)
-        labels = slic_assign(pix, centers, labels, ratio, step)
+        labels = slic_assign(pix, centers, labels, ratio, step, width=W)
     return labels.reshape(B, H, W).long(), maxd

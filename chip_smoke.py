@@ -12,13 +12,19 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    nvcc (one process per source, all started together);
 2. kernel B1 ``slic_assign`` against its plain PyTorch version at the main
    path's shapes (4 images of 256², K = 529 centers, step 11), on the seed
-   centers, on centers from a real SLIC state and on jittered centers:
-   labels must be equal (both compute the same float32 operations in the
-   same order, so there are no ties to excuse);
+   centers, on centers from a real SLIC state and on jittered centers, with
+   every center collapsed into one pixel tile (the candidate list holds all
+   K), with half of the centers pushed off the image, on a ragged 97 × 131
+   image at 60 segments and at 352² and 416² with 500 segments: labels must
+   be equal (both compute the same float32 operations in the same order, so
+   there are no ties to excuse). Prints the mean and the largest length of
+   the kernel's per-tile candidate lists;
 3. kernel B2 ``fused_mha`` against its plain version with the committed
    fusion weights in both directions of the main path (4 × 640 queries ×
-   13 keys and 4 × 13 queries × 640 keys, partial key masks): out within
-   rtol/atol 1e-4, probabilities within rtol 1e-3 / atol 2e-3;
+   13 keys and 4 × 13 queries × 640 keys, partial key masks), at the
+   training shapes (576) and on a ragged case (37 queries × 75 keys, one
+   batch row with every key masked): out within rtol/atol 1e-4,
+   probabilities within rtol 1e-3 / atol 2e-3, a repeat bit-equal;
 4. kernel B3 ``fused_mha_bwd``, the gradient of B2, against its plain
    backward through ``torch.autograd`` on the card: the training shapes
    (4 × 576 × 13 and 4 × 13 × 576) and the inference ones (640), partial key
@@ -45,13 +51,15 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    relative, final parameters within 1e-3. A short run at ``dropout = 0.3``
    with on-device augmentation: train steps launch neither kernel, eval
    steps launch B2;
-7. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel,
-   its plain version, ``torch.nn.functional.multi_head_attention_forward``
+7. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel
+   (B1 at each pixel-tile shape), the host time to enqueue one call, its
+   plain version, ``torch.nn.functional.multi_head_attention_forward``
    (and its autograd backward) as B2's and B3's library yardstick (the port
    never calls it), the inference slice's ms per batch and images per
    second, and the ms per train step and steps per second. ``--profile``
-   adds ``torch.profiler`` breakdowns of one inference batch and of three
-   train steps and writes the batch's Chrome trace to the path given.
+   adds ``torch.profiler`` breakdowns of one inference batch, of three train
+   steps and of 20 calls of B1 and B2 (device time of each sub-kernel) and
+   writes the batch's Chrome trace to the path given.
 
 Prints JSON lines per phase, then the card's name and power limit, the
 kernel table line, and as its last line
@@ -176,11 +184,11 @@ def phase_build(kernels):
           "ptxas": ptxas})
 
 
-def slic_state(torch, slic_mod, images_u8, iters: int):
+def slic_state(torch, slic_mod, images_u8, iters: int, n_segments: int = 500):
     """Pixel features and the center/label state after ``iters`` plain
     assign + update rounds (a real SLIC state)."""
     imgs = torch.from_numpy(images_u8).cuda().float() / 255.0
-    pix, centers, step, ratio = slic_mod.slic_features(imgs, 500)
+    pix, centers, step, ratio = slic_mod.slic_features(imgs, n_segments)
     labels = torch.zeros(pix.shape[:2], dtype=torch.int32, device=pix.device)
     for _ in range(iters):
         labels = slic_mod.slic_assign_plain(pix, centers, labels, ratio, step)
@@ -201,27 +209,62 @@ def in_box_pairs(torch, pix, centers, step) -> int:
     return total
 
 
+def center_cases(torch, centers, step, height, width):
+    """Center states that stress B1's per-tile candidate lists: jittered by
+    up to a step, all collapsed into one 16 × 16 tile, half pushed off the
+    image."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    jitter = centers.clone()
+    jitter[..., 3:] += (torch.rand(centers[..., 3:].shape, generator=g, device="cuda") - 0.5) * 2 * step
+    collapsed = centers.clone()
+    collapsed[..., 3] = 20.0 + 9.0 * torch.rand(centers.shape[:2], generator=g, device="cuda")
+    collapsed[..., 4] = 36.0 + 9.0 * torch.rand(centers.shape[:2], generator=g, device="cuda")
+    off = torch.rand(centers.shape[:2], generator=g, device="cuda") < 0.5
+    outside = centers.clone()
+    outside[..., 3] = torch.where(off, centers[..., 3] - height - 3.5 * step, centers[..., 3])
+    outside[..., 4] = torch.where(~off, centers[..., 4] + width + 0.5 * step, centers[..., 4])
+    return {"jitter": jitter, "collapsed": collapsed, "outside": outside}
+
+
+def list_lengths(slic_mod, centers, step, height, width):
+    """Mean and largest length of B1's candidate lists over the pixel tiles."""
+    tile = (256 // slic_mod.TILE_WIDTH, slic_mod.TILE_WIDTH)
+    n = slic_mod.tile_candidates(centers, step, height, width, tile).sum(-1)
+    return {"tile_rows_x_cols": list(tile), "tiles": int(n.numel()),
+            "mean": float(n.float().mean()), "max": int(n.max())}
+
+
 def phase_slic_assign(torch, slic_mod, images_u8):
     pix, c0, _, step, ratio = slic_state(torch, slic_mod, images_u8, 0)
     _, c5, prev5, _, _ = slic_state(torch, slic_mod, images_u8, 5)
-    g = torch.Generator(device="cuda").manual_seed(0)
-    jitter = c5.clone()
-    jitter[..., 3:] += (torch.rand(c5[..., 3:].shape, generator=g, device="cuda") - 0.5) * 2 * step
     zeros = torch.zeros_like(prev5)
     K = c0.shape[1]
     gh, gw = slic_mod.grid_shape(500, SIZE, SIZE)
     if pix.shape != (BATCH, SIZE * SIZE, 5) or K != gh * gw or step != 11:
         fail(f"B1 shapes {tuple(pix.shape)}, K={K}, step={step} are not the main path's")
+    stress = center_cases(torch, c5, step, SIZE, SIZE)
+    cases = [("seed", SIZE, SIZE, pix, c0, zeros, step, ratio),
+             ("iter5", SIZE, SIZE, pix, c5, prev5, step, ratio)]
+    cases += [(name, SIZE, SIZE, pix, c, prev5, step, ratio) for name, c in stress.items()]
+    # Other sizes: a ragged image (no side a multiple of any tile) and the
+    # two larger resolutions the models are served at.
+    for name, h, w, n_segments in (("ragged_97x131", 97, 131, 60), ("352", 352, 352, 500),
+                                   ("416", 416, 416, 500)):
+        imgs = synthetic_images(7 + h, 2, max(h, w))[:, :h, :w]
+        p, c, prev, st, ra = slic_state(torch, slic_mod, imgs, 2, n_segments)
+        cases.append((name, h, w, p, center_cases(torch, c, st, h, w)["jitter"], prev, st, ra))
     worst = 0
-    for name, centers, prev in (("seed", c0, zeros), ("iter5", c5, prev5),
-                                ("jitter", jitter, prev5)):
-        got = slic_mod.slic_assign(pix, centers.contiguous(), prev, ratio, step)
+    for name, h, w, p, centers, prev, st, ra in cases:
+        centers = centers.contiguous()
+        got = slic_mod.slic_assign(p, centers, prev, ra, st, width=w)
         torch.cuda.synchronize()
-        want = slic_mod.slic_assign_plain(pix, centers, prev, ratio, step)
+        want = slic_mod.slic_assign_plain(p, centers, prev, ra, st)
         bad = int((got != want).sum())
         worst = max(worst, int((got - want).abs().max()))
-        emit({"phase": "slic_assign_check", "centers": name, "mismatched_labels": bad,
-              "pixels": int(got.numel())})
+        emit({"phase": "slic_assign_check", "centers": name, "height": h, "width": w,
+              "step": st, "k": int(centers.shape[1]), "mismatched_labels": bad,
+              "pixels": int(got.numel()),
+              "candidate_list": list_lengths(slic_mod, centers, st, h, w)})
         if bad:
             fail(f"B1 disagrees with its plain version on {bad} labels ({name})")
     return {"pix": pix, "centers": c5, "prev": prev5, "step": step, "ratio": ratio,
@@ -243,25 +286,47 @@ def mha_inputs(torch, fusion_model, nq, nk, seed):
     return params, q, k, mask
 
 
-def phase_fused_mha(torch, attention_mod, fusion_model):
+def phase_fused_mha(torch, kernels, attention_mod, fusion_model):
     worst_out = worst_p = 0.0
     cases = {}
-    for name, nq, nk in (("rg2kg", 640, 13), ("kg2rg", 13, 640)):
+    for name, nq, nk in (("rg2kg", 640, 13), ("kg2rg", 13, 640),
+                         ("rg2kg_576", TRAIN_NODES, 13), ("kg2rg_576", 13, TRAIN_NODES),
+                         ("ragged_37x75", 37, 75)):
         params, q, k, mask = mha_inputs(torch, fusion_model, nq, nk, seed=nq)
+        if name.startswith("ragged"):
+            mask = mask.clone()
+            mask[2] = False            # a batch row with every key masked
+        before = kernels.LAUNCHES["fused_mha"]
         got_out, got_p = attention_mod.fused_mha(params, q, k, k, 8, mask)
         torch.cuda.synchronize()
+        launched = kernels.LAUNCHES["fused_mha"] - before
+        again_out, again_p = attention_mod.fused_mha(params, q, k, k, 8, mask)
         want_out, want_p = attention_mod.multihead_attention(params, q, k, k, 8, mask)
         e_out = float((got_out - want_out).abs().max())
         e_p = float((got_p - want_p).abs().max())
+        repeat = torch.equal(got_out, again_out) and torch.equal(got_p, again_p)
+        # What the call keeps for the backward kernel (projected q, k, v and
+        # the context), read off the autograd node, against plain products.
+        grad_out, _ = attention_mod.fused_mha(params, q.clone().requires_grad_(), k, k, 8, mask)
+        repeat = repeat and torch.equal(grad_out.detach(), got_out)
+        _, _, v_heads, p_heads, _ = attention_mod._head_probs(params, q, k, k, 8, mask)
+        plain_saved = (q @ params["wq"] + params["bq"], k @ params["wk"] + params["bk"],
+                       k @ params["wv"] + params["bv"],
+                       attention_mod._merge_heads(p_heads @ v_heads))
+        e_saved = {n: float((a - b).abs().max()) for n, a, b in
+                   zip(("qp", "kp", "vp", "ctx"), grad_out.grad_fn.saved_tensors[-4:], plain_saved)}
         ok = (torch.allclose(got_out, want_out, rtol=1e-4, atol=1e-4)
               and torch.allclose(got_p, want_p, rtol=1e-3, atol=2e-3)
-              and bool(torch.isfinite(got_out).all()))
+              and bool(torch.isfinite(got_out).all()) and bool(torch.isfinite(got_p).all())
+              and repeat and launched == 1)
         emit({"phase": "fused_mha_check", "direction": name, "nq": nq, "nk": nk,
-              "max_abs_err_out": e_out, "max_abs_err_probs": e_p, "ok": ok})
+              "max_abs_err_out": e_out, "max_abs_err_probs": e_p,
+              "max_abs_err_saved": e_saved, "bit_equal_repeat": repeat, "launches": launched, "ok": ok})
         if not ok:
             fail(f"B2 disagrees with its plain version ({name})")
         worst_out, worst_p = max(worst_out, e_out), max(worst_p, e_p)
-        cases[name] = (params, q, k, mask)
+        if name in ("rg2kg", "kg2rg"):
+            cases[name] = (params, q, k, mask)
     return cases, max(worst_out, worst_p)
 
 
@@ -479,7 +544,21 @@ def phase_times(torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches
     step, ratio = b1["step"], b1["ratio"]
     B, HW, _ = pix.shape
     K = centers.shape[1]
-    b1_ms = cuda_ms(lambda: slic_mod.slic_assign(pix, centers, prev, ratio, step))
+    def b1():
+        return slic_mod.slic_assign(pix, centers, prev, ratio, step, width=SIZE)
+
+    # Pixel-tile shapes in turns inside this one run; 256 x 1 is a run of
+    # 256 pixels, what the kernel takes when it is given no width.
+    main_tile = slic_mod.TILE_WIDTH
+    tiles = {}
+    for tile_w in (16, 32, 256, 256, 32, 16):
+        slic_mod.TILE_WIDTH = tile_w
+        tiles.setdefault(f"{tile_w}x{256 // tile_w}", []).append(cuda_ms(b1, reps=50))
+        lengths = list_lengths(slic_mod, centers, step, SIZE, SIZE)
+        tiles[f"{tile_w}x{256 // tile_w}_list"] = [lengths["mean"], lengths["max"]]
+    slic_mod.TILE_WIDTH = main_tile
+    b1_ms = cuda_ms(b1)
+    b1_host = host_ms(b1)
     b1_plain = cuda_ms(lambda: slic_mod.slic_assign_plain(pix, centers, prev, ratio, step),
                        reps=3, rounds=3)
     pairs = in_box_pairs(torch, pix, centers, step)
@@ -509,6 +588,7 @@ def phase_times(torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches
                       + Bq * Nq * E + Bq * Nq * Nk) + Bq * Nk
         b2[name] = {
             "ms": cuda_ms(lambda: attention_mod.fused_mha(params, q, k, k, 8, mask)),
+            "host_ms": host_ms(lambda: attention_mod.fused_mha(params, q, k, k, 8, mask)),
             "plain_ms": cuda_ms(lambda: attention_mod.multihead_attention(params, q, k, k, 8, mask)),
             "library_ms": cuda_ms(library),
             "library_max_abs_err_out": float((lib_out.transpose(0, 1) - ref_out).abs().max()),
@@ -526,12 +606,22 @@ def phase_times(torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches
     slice_s = (time.perf_counter() - t0) / len(batches)
     emit({"phase": "slice_time", "ms_per_batch": slice_s * 1e3,
           "images_per_second": BATCH / slice_s, "batch": BATCH, "size": SIZE,
-          "slic_assign_ms": b1_ms, "slic_assign_plain_ms": b1_plain,
-          "slic_assign_in_box_pairs": pairs})
+          "slic_assign_ms": b1_ms, "slic_assign_host_ms": b1_host,
+          "slic_assign_plain_ms": b1_plain, "slic_assign_in_box_pairs": pairs,
+          "slic_assign_tile": [main_tile, 256 // main_tile],
+          "slic_assign_ms_by_tile_width_x_height": tiles})
     if trace:
         phase_profile(torch, "one inference batch",
                       lambda: predictor.predict_batch(batches[0]), trace)
-    return (b1_ms, b1_plain, b1_bound, pairs), (b2, b2_bound)
+
+        def kernel_calls():
+            for _ in range(20):
+                b1()
+                for params, q, k, mask in b2_cases.values():
+                    attention_mod.fused_mha(params, q, k, k, 8, mask)
+
+        phase_profile(torch, "20 calls of B1 and of B2 in each direction", kernel_calls)
+    return (b1_ms, b1_host, b1_plain, b1_bound, pairs), (b2, b2_bound)
 
 
 def phase_times_train(torch, attention_mod, b3_cases, trainer, ds, profile):
@@ -664,6 +754,19 @@ def busy_us(spans, lo=float("-inf"), hi=float("inf")) -> float:
     return total + (0.0 if cur_end is None else cur_end - cur_start)
 
 
+def hand_kernel_names():
+    """Names of the kernels in the port's CUDA sources (each ends in
+    ``_kernel``)."""
+    import re
+
+    csrc = os.path.join(REPO, "camouflage_multimodal_tpu_torch", "csrc")
+    names = set()
+    for name in os.listdir(csrc):
+        with open(os.path.join(csrc, name)) as f:
+            names.update(re.findall(r"\b(\w+_kernel)\b", f.read()))
+    return names
+
+
 def phase_profile(torch, what, fn, trace=None):
     """``fn()`` under ``torch.profiler``: device time by kernel, device busy
     and idle share of its wall time, and each pipeline stage's host time,
@@ -717,9 +820,10 @@ def phase_profile(torch, what, fn, trace=None):
           "device_events": len(spans), "stages": stages,
           "top_kernels": [{"kernel": k[:80], "ms": t, "calls": n}
                           for k, (t, n) in top],
-          "hand_written_kernels": {k.split("::")[1].split("(")[0]: {"ms": t, "calls": n}
-                                   for k, (t, n) in by_kernel.items()
-                                   if k.startswith("(anonymous namespace)::")},
+          "hand_written_kernels": {k: v for k, v in (
+              (k.split("::")[1].split("(")[0], {"ms": t, "calls": n})
+              for k, (t, n) in by_kernel.items() if "(anonymous namespace)::" in k)
+              if k.split("<")[0] in hand_kernel_names()},
           "top_host_ops": [{"op": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
                             "calls": e.count} for e in host_top]})
 
@@ -757,13 +861,13 @@ def main() -> None:
     phase_build(kernels)
     b1 = phase_slic_assign(torch, slic_mod, synthetic_images(7, BATCH, SIZE))
     fusion_model, _ = api.load_multimodal_model(ARTIFACTS[0], device="cuda")
-    b2_cases, b2_err = phase_fused_mha(torch, attention_mod, fusion_model)
+    b2_cases, b2_err = phase_fused_mha(torch, kernels, attention_mod, fusion_model)
     b3_cases, b3_err = phase_fused_mha_bwd(torch, kernels, attention_mod, fusion_model)
     predictor, batches, launches = phase_slice(torch, np, kernels, api, args.batches)
     with tempfile.TemporaryDirectory() as out_dir:
         trainer, train_ds, train_launches = phase_train_slice(
             torch, np, kernels, api, train_mod, out_dir)
-    (b1_ms, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
+    (b1_ms, b1_host, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
         torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches, trace)
     b3, b3_bound = phase_times_train(torch, attention_mod, b3_cases, trainer, train_ds,
                                      bool(trace))
@@ -779,7 +883,7 @@ def main() -> None:
          "replaces": "camouflage_multimodal_tpu/ops/pallas_slic.py:33",
          "per": "1 launch: one SLIC assignment of 4 images of 256^2 against K=529",
          "launches": launches["slic_assign"], "max_abs_err": b1["max_abs_err"],
-         "ms": b1_ms, "plain_ms": b1_plain, "bound_ms": b1_bound[0],
+         "ms": b1_ms, "host_ms": b1_host, "plain_ms": b1_plain, "bound_ms": b1_bound[0],
          "bound_by": b1_bound[1], "library_ms": None},
         {"name": "fused_mha", "route": "cuda",
          "source": "camouflage_multimodal_tpu_torch/csrc/fused_mha.cu",
@@ -791,6 +895,7 @@ def main() -> None:
          "ms_training_shapes": sum(v["fused_mha_ms"] for v in b3.values()),
          "max_abs_err": b2_err,
          "ms": sum(v["ms"] for v in b2.values()),
+         "host_ms": sum(v["host_ms"] for v in b2.values()),
          "plain_ms": sum(v["plain_ms"] for v in b2.values()),
          "bound_ms": b2_bound[0], "bound_by": b2_bound[1],
          "library_ms": sum(v["library_ms"] for v in b2.values())},

@@ -53,6 +53,65 @@ def test_slic_assign_kernel_equals_plain(dev, size, n_segments, iters):
     assert torch.equal(got, want)
 
 
+def _center_case(case, centers, step, height, width, dev):
+    """Center states that stress the per-tile candidate lists of B1."""
+    c = centers.clone()
+    g = torch.Generator(device=dev).manual_seed(3)
+    if case == "jitter":
+        c[..., 3:] += (torch.rand(c[..., 3:].shape, generator=g, device=dev) - 0.5) * 2 * step
+    elif case == "collapsed":       # every center inside one tile: the list holds all K
+        c[..., 3] = 20.0 + 9.0 * torch.rand(c.shape[:2], generator=g, device=dev)
+        c[..., 4] = 36.0 + 9.0 * torch.rand(c.shape[:2], generator=g, device=dev)
+    elif case == "outside":         # half of the centers pushed off the image
+        off = torch.rand(c.shape[:2], generator=g, device=dev) < 0.5
+        c[..., 3] = torch.where(off, c[..., 3] - height - 3.5 * step, c[..., 3])
+        c[..., 4] = torch.where(~off, c[..., 4] + width + 0.5 * step, c[..., 4])
+    return c.contiguous()
+
+
+@pytest.mark.parametrize("tile_width", [16, 32, 256])
+@pytest.mark.parametrize("height,width,n_segments,case", [
+    (256, 256, 500, "seed"), (256, 256, 500, "jitter"), (256, 256, 500, "collapsed"),
+    (256, 256, 500, "outside"), (97, 131, 60, "jitter"), (97, 131, 60, "collapsed"),
+    (352, 352, 500, "jitter"), (416, 416, 500, "jitter")])
+def test_slic_assign_tiles_equal_plain(dev, monkeypatch, height, width, n_segments, case,
+                                       tile_width):
+    """The tiled kernel with the image width given: bit-equal labels for
+    seeded, jittered, collapsed and out-of-image centers, square and ragged
+    images, at every tile shape."""
+    monkeypatch.setattr(S, "TILE_WIDTH", tile_width)
+    g = torch.Generator().manual_seed(height)
+    imgs = torch.rand(2, height, width, 3, generator=g).to(dev)
+    pix, centers, step, ratio = S.slic_features(imgs, n_segments)
+    centers = _center_case(case, centers, step, height, width, dev)
+    prev = torch.randint(0, centers.shape[1], pix.shape[:2], generator=g).int().to(dev)
+    got = S.slic_assign(pix, centers, prev, ratio, step, width=width)
+    torch.cuda.synchronize()
+    want = S.slic_assign_plain(pix, centers, prev, ratio, step)
+    assert torch.equal(got, want)
+    assert torch.equal(S.slic_assign(pix, centers, prev, ratio, step), want)   # no width
+
+
+@pytest.mark.parametrize("nq,nk,e,heads", [(576, 13, 256, 8), (13, 576, 256, 8),
+                                           (37, 75, 256, 8), (5, 32, 64, 4), (3, 33, 32, 8)])
+def test_fused_mha_kernel_repeats_bit_equal(dev, nq, nk, e, heads):
+    """Training shapes, a ragged case and both sides of the short-key /
+    key-split boundary: within the bars, finite, and bit-equal on repeat
+    (every sum runs in a fixed order)."""
+    params, q, k, v, mask, _, _ = _mha_case(dev, nq, nk, e, nq + nk)
+    before = kernels.LAUNCHES["fused_mha"]
+    out, probs = A.fused_mha(params, q, k, v, heads, mask)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_mha"] == before + 1
+    ref_out, ref_p = A.multihead_attention(params, q, k, v, heads, mask)
+    assert torch.isfinite(out).all() and torch.isfinite(probs).all()
+    torch.testing.assert_close(out, ref_out, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(probs, ref_p, rtol=1e-3, atol=2e-3)
+    torch.testing.assert_close(probs[2], torch.full_like(probs[2], 1.0 / nk))   # all masked
+    again_out, again_p = A.fused_mha(params, q, k, v, heads, mask)
+    assert torch.equal(out, again_out) and torch.equal(probs, again_p)
+
+
 @pytest.mark.parametrize("nq,nk,e,heads", [(640, 13, 256, 8), (13, 640, 256, 8),
                                            (70, 1, 64, 4), (33, 700, 128, 8)])
 def test_fused_mha_kernel_matches_plain(dev, nq, nk, e, heads):
@@ -84,6 +143,8 @@ def test_wrappers_check_inputs(dev):
     with pytest.raises(ValueError):
         S.slic_assign(pix.transpose(0, 1).contiguous().transpose(0, 1)[:, ::2], centers,
                       prev[:, :8], 1.0, 2)
+    with pytest.raises(ValueError, match="does not divide"):
+        S.slic_assign(pix, centers, prev, 1.0, 2, width=5)
     x = torch.zeros(1, 4, 64, device=dev)
     params = {n: torch.zeros((64, 64) if n[0] == "w" else (64,), device=dev)
               for n in A.PARAM_NAMES}
@@ -91,6 +152,13 @@ def test_wrappers_check_inputs(dev):
         A.fused_mha(params, x, x, x, 1)
     with pytest.raises(ValueError, match="contiguous"):
         A.fused_mha(params, x.transpose(1, 2).contiguous().transpose(1, 2), x, x, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        A.fused_mha(params, torch.zeros(4 * 64 + 1, device=dev)[1:].view(1, 4, 64), x, x, 2)
+    y = torch.zeros(1, 4, 24, device=dev)
+    small = {n: torch.zeros((24, 24) if n[0] == "w" else (24,), device=dev)
+             for n in A.PARAM_NAMES}
+    with pytest.raises(ValueError, match="multiples of 4"):
+        A.fused_mha(small, y, y, y, 4)
 
 
 def test_slic_on_card_matches_cpu(dev):
