@@ -10,7 +10,9 @@ so a changed source never loads a stale library. Builds happen at first use
 
 ``LAUNCHES`` holds one plain integer per kernel; each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the main
-path went through the kernels.
+path went through the kernels. Each library also counts the CUDA kernels it
+has launched (:func:`device_launches`): one wrapper call of the attention
+kernels is several of those.
 """
 
 from __future__ import annotations
@@ -34,21 +36,28 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signature of each library's launcher (pointers, then sizes, then stream).
 _SIGNATURES = {
     # pix, centers, prev, out, batch, height, width, tile_w, k, ratio, step,
     # stream
     "slic_assign": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, mask, wq, bq, wk, bk, wv, bv, wo, bo, qp, kp, vp, ctx, out,
-    # probs, attn_scratch (or null), batch, nq, nk, e, heads, key_chunks,
-    # scale, stream
-    "fused_mha": [_P] * 19 + [_I] * 6 + [_F, _P],
-    # q, k, v, mask, wq, wk, wv, wo, qp, kp, vp, ctx, d_out, d_probs (or
-    # null); scratch d_ctx, d_qp, d_kp, d_vp, p_heads, ds_heads, w_partial;
-    # d_q, d_k, d_v, d_wq, d_bq, d_wk, d_bk, d_wv, d_bv, d_wo, d_bo; batch,
-    # nq, nk, e, heads, key_splits, weight_splits, scale, stream
-    "fused_mha_bwd": [_P] * 32 + [_I] * 7 + [_F, _P],
+    # probs, attn_scratch (or null), stats (or null), batch, nq, nk, e, heads,
+    # key_chunks, scale, stream
+    "fused_mha": [_P] * 20 + [_I] * 6 + [_F, _P],
+    # q, k, v, mask, wq, wk, wv, wo, qp, kp, vp, ctx, stats (or null), d_out,
+    # d_probs (or null), scratch, its size in floats; d_q, d_k, d_v, d_wq,
+    # d_bq, d_wk, d_bk, d_wv, d_bv, d_wo, d_bo; batch, nq, nk, e, heads,
+    # key_chunks, scale, stream
+    "fused_mha_bwd": [_P] * 16 + [_L] + [_P] * 11 + [_I] * 6 + [_F, _P],
+}
+
+# Further entry points of a library, for tests and measurements.
+_EXTRA_SIGNATURES = {
+    # a, b, y, colsum (or null), rows, e, form (1 = a b^T, 2 = a^T b by row
+    # chunks), stream
+    "fused_mha_bwd": {"fused_mha_bwd_gemm": [_P] * 4 + [_I] * 3 + [_P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -118,9 +127,14 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             lib.cmt_error_string.restype = ctypes.c_char_p
             lib.cmt_error_string.argtypes = [ctypes.c_int]
+            lib.cmt_kernel_launches.restype = ctypes.c_longlong
+            lib.cmt_kernel_launches.argtypes = []
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = _SIGNATURES[name]
+            for extra, argtypes in _EXTRA_SIGNATURES.get(name, {}).items():
+                getattr(lib, extra).restype = ctypes.c_int
+                getattr(lib, extra).argtypes = argtypes
             _libs[name] = lib
         return lib
 
@@ -132,8 +146,10 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def device_launches(name: str) -> int:
+    """CUDA kernels that library ``name`` has launched since it was loaded:
+    the difference around one wrapper call is that call's launches."""
+    return int(library(name).cmt_kernel_launches())
 
 
 def stream_handle(t: torch.Tensor) -> int:
@@ -141,12 +157,3 @@ def stream_handle(t: torch.Tensor) -> int:
     launcher takes (read without building a ``torch.cuda.Stream``: the
     wrappers run many times per batch)."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
-
-
-def require_cuda_inputs(what: str, device: torch.device, **tensors) -> None:
-    """Wrapper-side checks: every tensor on ``device``, contiguous."""
-    for name, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")

@@ -39,7 +39,9 @@
 //        running max and sum, and its partial P V. 13 query rows x 640 keys
 //        x batch 4 give 320 blocks instead of 52. The combine kernel (a
 //        block per query row) rescales the chunks in chunk order, normalises,
-//        writes the context and sums the head mean in head order.
+//        writes the context and sums the head mean in head order. It also
+//        writes each (head, query row)'s softmax max and sum: with them the
+//        backward kernel's key chunks work alone.
 //   3. proj_kernel on the context with Wo, bo.
 // Masking sets a masked logit to -1e30 (not -inf) exactly as the plain
 // version does, so a row whose keys are all masked gets uniform weights; in
@@ -283,12 +285,13 @@ attn_chunk_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
 }
 
 // Joins the chunks of one query row: grid (Nq, B). factor[h][c] =
-// exp(cmax - row max) / row sum rescales chunk c of head h.
+// exp(cmax - row max) / row sum rescales chunk c of head h. stats
+// (B, H, Nq, 2) receives the row max and the row sum.
 __global__ void __launch_bounds__(kCombineThreads)
 attn_combine_kernel(const float* __restrict__ ebuf, const float* __restrict__ cmax,
                     const float* __restrict__ csum, const float* __restrict__ cout,
-                    float* __restrict__ ctx, float* __restrict__ probs, int nq, int nk, int e,
-                    int heads, int chunks) {
+                    float* __restrict__ ctx, float* __restrict__ probs,
+                    float* __restrict__ stats, int nq, int nk, int e, int heads, int chunks) {
   extern __shared__ float factor[];   // (heads, chunks)
   const int q = blockIdx.x, b = blockIdx.y;
   const int hd = e / heads;
@@ -302,6 +305,10 @@ attn_combine_kernel(const float* __restrict__ ebuf, const float* __restrict__ cm
     for (int c = lane; c < chunks; c += 32) sum += csum[part + c] * expf(cmax[part + c] - m);
     sum = warp_sum(sum);
     for (int c = lane; c < chunks; c += 32) factor[h * chunks + c] = expf(cmax[part + c] - m) / sum;
+    if (lane == 0) {
+      stats[part / chunks * 2] = m;
+      stats[part / chunks * 2 + 1] = sum;
+    }
   }
   __syncthreads();
 
@@ -333,15 +340,18 @@ CMT_DEFINE_ERROR_STRING
 // probs (B, Nq, Nk). All float32 except the mask, all 16-byte aligned;
 // E % 4 == 0 and (E / heads) % 4 == 0, E / heads <= 32.
 // key_chunks == 0 takes the short-key pass (Nk <= 32; attn_scratch unused);
-// otherwise it must be ceil(Nk / 64) and attn_scratch holds
-// B * heads * Nq * (Nk + key_chunks * (2 + E / heads)) floats.
+// otherwise it must be ceil(Nk / 64), attn_scratch holds
+// B * heads * Nq * (Nk + key_chunks * (2 + E / heads)) floats and stats
+// (B, heads, Nq, 2) receives each row's softmax max and sum (kept for the
+// backward like qp, kp, vp and ctx).
 CMT_EXPORT int fused_mha(const float* q, const float* k, const float* v,
                          const unsigned char* mask, const float* wq,
                          const float* bq, const float* wk, const float* bk,
                          const float* wv, const float* bv, const float* wo,
                          const float* bo, float* qp, float* kp, float* vp,
                          float* ctx, float* out, float* probs,
-                         float* attn_scratch, int batch, int nq, int nk, int e,
+                         float* attn_scratch, float* stats, int batch, int nq,
+                         int nk, int e,
                          int heads, int key_chunks, float scale,
                          void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -378,7 +388,7 @@ CMT_EXPORT int fused_mha(const float* q, const float* k, const float* v,
     rc = cmt_set_smem(attn_combine_kernel, smem);
     if (rc != 0) return rc;
     attn_combine_kernel<<<dim3(nq, batch), kCombineThreads, smem, stream>>>(
-        ebuf, cmax, csum, cout, ctx, probs, nq, nk, e, heads, key_chunks);
+        ebuf, cmax, csum, cout, ctx, probs, stats, nq, nk, e, heads, key_chunks);
     CMT_CHECK_LAUNCH();
   }
 

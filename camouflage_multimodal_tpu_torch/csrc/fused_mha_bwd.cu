@@ -12,34 +12,54 @@
 //     dS_h = P_h * (dP_h - rowsum(dP_h * P_h)), 0 at masked keys
 //     dQp_h = s dS_h Kp_h,   dKp_h = s dS_h^T Qp_h
 //   d_Wq = q^T dQp, d_bq = sum dQp, d_q = dQp Wq^T; the same for k and v.
-// All float32 on the CUDA cores (no TF32, no tensor cores yet).
 //
 // Bound on this card: at the training shapes (B = 4, E = 256, 8 heads of
 // 32; rg2kg Nq = 576, Nk = 13 and kg2rg Nq = 13, Nk = 576) the eight
 // E x E products per direction are ~95% of the ~2.5 GFLOP, and the few MB
-// of operands fit in L2: the kernel is bound by float32 operations.
-// Design: seven launches from one wrapper call, all on the caller's
+// of operands fit in L2: the kernel is bound by float32 operations, and at
+// this size by how many blocks each launch gives the 132 SMs and by the
+// chain of dependent launches. Design, five launches from one wrapper call
+// (six on the long-key side when d_probs is given), all on the caller's
 // stream, every sum in a fixed order (no floating-point atomics), so two
-// runs on the same inputs are bit-equal.
-//   1. gemm_kernel (x W^T form): d_ctx = d_out Wo^T.
-//   2. attn_bwd_query_kernel: one block per (query row, batch row), one warp
-//      per head, as the forward. Recomputes the head's probabilities in
-//      shared memory with the forward's own arithmetic, takes dP, the row
-//      sum and dS, writes P_h and dS_h to scratch (B, H, Nq, Nk) for the
-//      per-key pass, and reduces dQp over the keys, lane per output dim.
-//   3. attn_bwd_key_kernel: dKp and dVp reduce over the queries, so this
-//      pass takes one block per (key, batch row): warp (head, split) walks
-//      every splits-th query, lane per output dim; the splits' partial sums
-//      meet in shared memory and are added in split order. rg2kg has 13
-//      keys and 576 queries, kg2rg the reverse: neither pass ever
-//      parallelises over the short axis alone.
-//   4. gemm_kernel (x W^T form), three products in one launch: d_q, d_k, d_v.
-//   5. gemm_kernel (x^T dy form), four products in one launch, each split
-//      over the rows into `weight_splits` partial E x E sums in scratch
-//      (16 tiles of 64 x 64 per product would leave most SMs idle);
-//   6. sum_splits_kernel adds the partials in split order: d_Wq, d_Wk,
-//      d_Wv, d_Wo.
-//   7. colsum_kernel: d_bq, d_bk, d_bv, d_bo.
+// runs on the same inputs are bit-equal:
+//   1. gemm_kernel: one flat grid over the 32 x BN tiles of d_ctx = d_out
+//      Wo^T and of the row-chunk partials of d_Wo = ctx^T d_out, each tile
+//      a 3xTF32 tensor-core GEMM (gemm_3xtf32.cuh, forms kNT and kTN: no
+//      operand is transposed in memory). Weight gradients sum over B * N
+//      rows: the rows are cut into chunks of 256, a tile sums one chunk, the
+//      chunks' partials are added in chunk order in launch 5. The first row
+//      tile of each (chunk, column tile) also sums the chunk's columns of
+//      d_out as it streams them through shared memory: d_bo's partials.
+//   2. the attention pass, one of two kernels chosen as in the forward:
+//      - attn_bwd_short_kernel (Nk <= 32, rg2kg): a block stages the
+//        projected keys and values of one batch row in shared memory once
+//        and serves 16 query rows, one per warp. A lane takes a (key, head)
+//        pair and walks the 32-long dot products of the logit and of dP
+//        (rows padded to hd + 1 floats per head: 32 banks); a lane per head
+//        takes softmax, row sum and dS over its keys; a lane per head
+//        dimension takes dQp. P and dS of the 16 rows stay in shared
+//        memory, and the block then reduces dKp and dVp over its rows, a
+//        thread per output column; the blocks' partials are added in block
+//        order in launch 3. P and dS never reach device memory.
+//      - attn_bwd_chunk_kernel (Nk > 32, kg2rg): the keys are split into
+//        chunks of 64 and a block owns (chunk, batch row, head), 288 blocks
+//        at the training shape instead of 52. A chunk works alone because
+//        the forward saved each row's softmax max and sum, and because
+//          rowsum(dP * P) = d_ctx_h . ctx_h + (1/H) sum_j d_probs_j P_hj,
+//        whose first term needs only the saved context. The second term
+//        exists only when d_probs is given: then a first launch of the same
+//        kernel (kPre) writes each chunk's share of it. The block walks the
+//        query rows in groups of 16, keeps dKp and dVp of its 64 keys in
+//        registers across the groups (written once, no partials) and writes
+//        its chunk's partial of dQp.
+//   3. sum_parts_kernel joins the attention partials in order: dKp, dVp over
+//      the blocks (short) or dQp over the key chunks (long).
+//   4. gemm_kernel again, one flat grid: d_q = dQp Wq^T, d_k, d_v (kNT) and
+//      the row-chunk partials of d_Wq, d_Wk, d_Wv with those of the three
+//      bias gradients (kTN).
+//   5. sum_parts_kernel adds the row chunks of the four weight and the four
+//      bias gradients in chunk order (a gradient with a single chunk was
+//      written in place by its tile).
 // A masked logit gets no gradient: dS is set to 0 at masked keys, which
 // P = 0 does for a partly masked row but not for a row whose keys are all
 // masked (uniform P, as in the forward and the plain version).
@@ -47,140 +67,139 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "gemm_3xtf32.cuh"
 
 namespace {
 
-constexpr int kTile = 64;
-constexpr int kDepth = 16;
-constexpr int kGemmThreads = 256;
-constexpr int kMaxBatch = 4;
+constexpr int kSMs = 132;           // of an H100: below this many 64-wide tiles, take 32-wide ones
+constexpr int kRowChunk = 256;      // rows of one partial of a weight gradient
+constexpr int kMaxProducts = 6;
+constexpr int kMaxSums = 8;
+constexpr int kSumThreads = 256;
+constexpr int kShortKeys = 32;      // attn_bwd_short_kernel: one key per ballot bit
+constexpr int kRows = 16;           // query rows of one group, in both attention kernels
+constexpr int kShortThreads = 512;   // 16 warps: one query row of a group each
+constexpr int kMaxShortBlocks = 64; // per batch row: bounds the partials of dKp, dVp
+constexpr int kChunk = 64;          // keys of one attn_bwd_chunk_kernel block
+constexpr int kChunkThreads = 128;
+constexpr int kMaxHeadDim = 32;
 
-// Up to four products y = A B of one launch. A(r, k) = a[r * a_rs + k * a_ks],
-// B(k, c) = b[k * b_ks + c * b_cs]; y (m, n) row-major. The reduction runs
-// over `depth`, split into `splits` contiguous chunks: chunk s of product z
-// is written to y[z] + s * m * n.
+inline __host__ __device__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// Up to six products of one launch over (.., e) matrices. kNT: y (rows, e) =
+// a (rows, e) @ b^T, b (e, e). kTN: chunk s of y = a^T b over the rows
+// [s * kRowChunk, ...) of a and b (rows, e), written to y + s * e * e, and
+// the column sums of those rows of b to colsum + s * e.
 struct GemmBatch {
-  const float* a[kMaxBatch];
-  const float* b[kMaxBatch];
-  float* y[kMaxBatch];
-  int m[kMaxBatch];
-  int depth[kMaxBatch];
+  const float* a[kMaxProducts];
+  const float* b[kMaxProducts];
+  float* y[kMaxProducts];
+  float* colsum[kMaxProducts];
+  int rows[kMaxProducts];
+  int form[kMaxProducts];
+  int count;
 };
 
-__global__ void gemm_kernel(GemmBatch args, int n, int splits, int a_rs,
-                            int a_ks, int b_ks, int b_cs) {
-  const int z = blockIdx.z / splits;
-  const int split = blockIdx.z % splits;
-  const int m = args.m[z];
-  const int depth = args.depth[z];
-  const int row0 = blockIdx.y * kTile;
-  const int col0 = blockIdx.x * kTile;
-  if (row0 >= m) return;
-  const float* __restrict__ a = args.a[z];
-  const float* __restrict__ b = args.b[z];
-  int chunk = (depth + splits - 1) / splits;
-  chunk = (chunk + kDepth - 1) / kDepth * kDepth;
-  const int k_begin = split * chunk;
-  const int k_end = min(depth, k_begin + chunk);
-
-  __shared__ float as[kDepth][kTile + 4];
-  __shared__ float bs[kDepth][kTile];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kDepth) {
-    // Neighbouring threads read neighbouring addresses along whichever
-    // index is contiguous in memory.
-    for (int i = threadIdx.x; i < kTile * kDepth; i += kGemmThreads) {
-      const int r = (a_ks == 1) ? i / kDepth : i % kTile;
-      const int kk = (a_ks == 1) ? i % kDepth : i / kTile;
-      const int gr = row0 + r, gk = k0 + kk;
-      as[kk][r] = (gr < m && gk < k_end)
-                      ? a[static_cast<size_t>(gr) * a_rs + static_cast<size_t>(gk) * a_ks]
-                      : 0.f;
-    }
-    for (int i = threadIdx.x; i < kDepth * kTile; i += kGemmThreads) {
-      const int kk = (b_cs == 1) ? i / kTile : i % kDepth;
-      const int c = (b_cs == 1) ? i % kTile : i / kDepth;
-      const int gk = k0 + kk, gc = col0 + c;
-      bs[kk][c] = (gk < k_end && gc < n)
-                      ? b[static_cast<size_t>(gk) * b_ks + static_cast<size_t>(gc) * b_cs]
-                      : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      float ar[4], br[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ar[i] = as[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) br[j] = bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += ar[i] * br[j];
-    }
-    __syncthreads();
-  }
-
-  float* __restrict__ y = args.y[z] + static_cast<size_t>(split) * m * n;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c < n) y[static_cast<size_t>(r) * n + c] = acc[i][j];
-    }
-  }
+inline __host__ __device__ int product_tiles(const GemmBatch& args, int z, int e, int bn) {
+  const int tiles_n = ceil_div(e, bn);
+  if (args.form[z] == gemm3::kNT) return ceil_div(args.rows[z], gemm3::kBM) * tiles_n;
+  return ceil_div(e, gemm3::kBM) * tiles_n * ceil_div(args.rows[z], kRowChunk);
 }
 
-struct SumBatch {
-  const float* part[kMaxBatch];   // (splits, count)
-  float* y[kMaxBatch];            // (count,)
-};
-
-// y[i] = sum over the splits, in split order, of part[s][i].
-__global__ void sum_splits_kernel(SumBatch args, int count, int splits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const float* __restrict__ part = args.part[blockIdx.y];
-  float acc = 0.f;
-  for (int s = 0; s < splits; ++s) acc += part[static_cast<size_t>(s) * count + i];
-  args.y[blockIdx.y][i] = acc;
-}
-
-struct ColBatch {
-  const float* x[kMaxBatch];   // (rows, n)
-  float* y[kMaxBatch];         // (n,)
-  int rows[kMaxBatch];
-};
-
-// y[c] = sum over the rows of x[r][c]: blockDim (32, 32), thread row ty sums
-// rows ty, ty + 32, ...; the 32 partial sums are added in ty order.
-__global__ void __launch_bounds__(1024) colsum_kernel(ColBatch args, int n) {
-  __shared__ float part[32][33];
-  const int z = blockIdx.y;
+// blockIdx.x is a flat index over the products' tiles: product after product,
+// and within a kTN product chunk after chunk.
+template <int BN>
+__global__ void __launch_bounds__(gemm3::kThreads) gemm_kernel(GemmBatch args, int e) {
+  __shared__ __align__(16) gemm3::Smem<BN> smem;
+  const int tiles_n = ceil_div(e, BN);
+  int t = blockIdx.x;
+  int z = 0;
+  for (; z < args.count - 1; ++z) {
+    const int tz = product_tiles(args, z, e, BN);
+    if (t < tz) break;
+    t -= tz;
+  }
   const int rows = args.rows[z];
-  const float* __restrict__ x = args.x[z];
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (c < n)
-    for (int r = threadIdx.y; r < rows; r += 32) acc += x[static_cast<size_t>(r) * n + c];
-  part[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < n) {
-    float total = 0.f;
-    for (int i = 0; i < 32; ++i) total += part[i][threadIdx.x];
-    args.y[z][c] = total;
+  if (args.form[z] == gemm3::kNT) {
+    gemm3::tile_form<BN, gemm3::kNT>(smem, args.a[z], args.b[z], nullptr, args.y[z], rows, e,
+                                     (t / tiles_n) * gemm3::kBM, (t % tiles_n) * BN, 0, e,
+                                     nullptr);
+  } else {
+    const int per_chunk = ceil_div(e, gemm3::kBM) * tiles_n;
+    const int chunk = t / per_chunk;
+    t %= per_chunk;
+    const int row0 = (t / tiles_n) * gemm3::kBM;
+    const int k_begin = chunk * kRowChunk;
+    const int k_end = min(rows, k_begin + kRowChunk);
+    gemm3::tile_form<BN, gemm3::kTN>(
+        smem, args.a[z], args.b[z], nullptr, args.y[z] + static_cast<size_t>(chunk) * e * e, e,
+        e, row0, (t % tiles_n) * BN, k_begin, k_end,
+        row0 == 0 && args.colsum[z] ? args.colsum[z] + static_cast<size_t>(chunk) * e : nullptr);
   }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+int launch_gemm(const GemmBatch& args, int e, cudaStream_t stream) {
+  int tiles64 = 0, tiles32 = 0;
+  for (int z = 0; z < args.count; ++z) {
+    tiles64 += product_tiles(args, z, e, 64);
+    tiles32 += product_tiles(args, z, e, 32);
+  }
+  if (tiles64 >= kSMs) {
+    gemm_kernel<64><<<tiles64, gemm3::kThreads, 0, stream>>>(args, e);
+  } else {
+    gemm_kernel<32><<<tiles32, gemm3::kThreads, 0, stream>>>(args, e);
+  }
+  CMT_CHECK_LAUNCH();
+  return 0;
+}
+
+// y[z][i] = sum over s < splits[z], in that order, of part[z][s * count + i];
+// count4[z] = count / 4 (every count here is a multiple of 4 floats).
+struct SumBatch {
+  const float* part[kMaxSums];
+  float* y[kMaxSums];
+  int count4[kMaxSums];
+  int splits[kMaxSums];
+  int entries;
+};
+
+// blockIdx.x is a flat index over the entries' groups of kSumThreads float4.
+__global__ void __launch_bounds__(kSumThreads) sum_parts_kernel(SumBatch args) {
+  int blk = blockIdx.x;
+  int z = 0;
+  for (; z < args.entries - 1; ++z) {
+    const int bz = ceil_div(args.count4[z], kSumThreads);
+    if (blk < bz) break;
+    blk -= bz;
+  }
+  const int i = blk * kSumThreads + threadIdx.x;
+  const int count4 = args.count4[z];
+  if (i >= count4) return;
+  const float4* __restrict__ part = reinterpret_cast<const float4*>(args.part[z]);
+  float4 acc = part[i];
+  for (int s = 1; s < args.splits[z]; ++s) {
+    const float4 v = part[static_cast<size_t>(s) * count4 + i];
+    acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+  }
+  reinterpret_cast<float4*>(args.y[z])[i] = acc;
+}
+
+int launch_sums(SumBatch& sums, cudaStream_t stream) {
+  int blocks = 0;
+  for (int z = 0; z < sums.entries; ++z) blocks += ceil_div(sums.count4[z], kSumThreads);
+  if (blocks == 0) return 0;
+  sum_parts_kernel<<<blocks, kSumThreads, 0, stream>>>(sums);
+  CMT_CHECK_LAUNCH();
+  return 0;
+}
+
+void add_sum(SumBatch& sums, const float* part, float* y, size_t count, int splits) {
+  if (splits <= 1) return;   // written in place
+  const int z = sums.entries++;
+  sums.part[z] = part;
+  sums.y[z] = y;
+  sums.count4[z] = static_cast<int>(count / 4);
+  sums.splits[z] = splits;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -188,222 +207,433 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// qp, d_ctx (B, Nq, E); kp, vp (B, Nk, E); mask (B, Nk) bytes, 1 = valid;
-// d_probs (B, Nq, Nk) or null. Writes p_heads, ds_heads (B, H, Nq, Nk) and
-// d_qp (B, Nq, E). One block per (query, batch row), one warp per head.
-__global__ void attn_bwd_query_kernel(const float* __restrict__ qp,
-                                      const float* __restrict__ kp,
-                                      const float* __restrict__ vp,
-                                      const unsigned char* __restrict__ mask,
-                                      const float* __restrict__ d_ctx,
-                                      const float* __restrict__ d_probs,
-                                      float* __restrict__ p_heads,
-                                      float* __restrict__ ds_heads,
-                                      float* __restrict__ d_qp,
-                                      int nq, int nk, int e, int heads, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                                     // (E,) the scaled query row
-  float* gs = smem + e;                                 // (E,) its d_ctx row
-  float* p = smem + 2 * e;                              // (heads, Nk) probabilities
-  float* ds = p + static_cast<size_t>(heads) * nk;      // (heads, Nk) dP, then dS
-  const int h = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q = blockIdx.x;
+// Floats of attn_bwd_short_kernel's shared memory: keys and values (Nk,
+// heads, hd + 1) each, and per query row of the group the scaled query and
+// its d_ctx row (heads, hd + 1) and P and dS (Nk, heads).
+size_t short_smem_floats(int nk, int e, int heads) {
+  const size_t padded = static_cast<size_t>(heads) * (e / heads + 1);
+  return 2 * nk * padded + kRows * (2 * padded + 2 * static_cast<size_t>(nk) * heads);
+}
+
+// Nk <= 32. qp, d_ctx (B, Nq, E); kp, vp (B, Nk, E); mask (B, Nk) bytes,
+// 1 = valid; d_probs (B, Nq, Nk) or null. Writes d_qp (B, Nq, E) and the
+// block's partial sums of d_kp, d_vp over its query rows to slab blockIdx.x
+// of kp_part, vp_part (gridDim.x, B, Nk, E). Grid (blocks, batch rows); block
+// x takes the groups of 16 query rows x, x + gridDim.x, ...
+__global__ void __launch_bounds__(kShortThreads)
+attn_bwd_short_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
+                      const float* __restrict__ vp, const unsigned char* __restrict__ mask,
+                      const float* __restrict__ d_ctx, const float* __restrict__ d_probs,
+                      float* __restrict__ d_qp, float* __restrict__ kp_part,
+                      float* __restrict__ vp_part, int batch, int nq, int nk, int e, int heads,
+                      float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int hd = e / heads, hp = hd + 1;   // hp odd: (key, head) rows fall on 32 banks
+  const int padded = heads * hp, pairs = nk * heads;
   const int b = blockIdx.y;
-  const size_t qrow = static_cast<size_t>(b) * nq + q;
-  for (int i = threadIdx.x; i < e; i += blockDim.x) {
-    qs[i] = qp[qrow * e + i] * scale;
-    gs[i] = d_ctx[qrow * e + i];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* ks = smem;                        // (Nk, heads, hp)
+  float* vs = ks + nk * padded;            // (Nk, heads, hp)
+  float* qs = vs + nk * padded;            // (kRows, heads, hp) scaled queries
+  float* gs = qs + kRows * padded;         // (kRows, heads, hp) d_ctx rows
+  float* ps = gs + kRows * padded;         // (kRows, Nk, heads) logits, then P
+  float* ds = ps + kRows * pairs;          // (kRows, Nk, heads) dP, then dS
+
+  const float4* kg = reinterpret_cast<const float4*>(kp + static_cast<size_t>(b) * nk * e);
+  const float4* vg = reinterpret_cast<const float4*>(vp + static_cast<size_t>(b) * nk * e);
+  for (int i = threadIdx.x; i < nk * e / 4; i += kShortThreads) {
+    const float4 kv = kg[i], vv = vg[i];
+    const int j = (i * 4) / e, col = (i * 4) % e;    // hd % 4 == 0: one head per float4
+    const int at = j * padded + (col / hd) * hp + col % hd;
+    ks[at] = kv.x, ks[at + 1] = kv.y, ks[at + 2] = kv.z, ks[at + 3] = kv.w;
+    vs[at] = vv.x, vs[at + 1] = vv.y, vs[at + 2] = vv.z, vs[at + 3] = vv.w;
   }
   __syncthreads();
 
-  const int hd = e / heads;
-  const unsigned char* mb = mask + static_cast<size_t>(b) * nk;
-  const float* kb = kp + static_cast<size_t>(b) * nk * e + h * hd;
-  const float* vb = vp + static_cast<size_t>(b) * nk * e + h * hd;
-  const float* qh = qs + h * hd;
-  const float* gh = gs + h * hd;
-  float* ph = p + static_cast<size_t>(h) * nk;
-  float* dsh = ds + static_cast<size_t>(h) * nk;
-
-  // The head's probabilities, with the forward's arithmetic.
-  float m = -INFINITY;
-  for (int j = lane; j < nk; j += 32) {
-    float s = -1e30f;
-    if (mb[j]) {
-      const float* kr = kb + static_cast<size_t>(j) * e;
-      s = 0.f;
-      for (int d = 0; d < hd; ++d) s += qh[d] * kr[d];
-    }
-    ph[j] = s;
-    m = fmaxf(m, s);
-  }
-  m = warp_max(m);
-  float sum = 0.f;
-  for (int j = lane; j < nk; j += 32) {
-    const float ex = expf(ph[j] - m);
-    ph[j] = ex;
-    sum += ex;
-  }
-  sum = warp_sum(sum);
-
-  // dP = d_ctx_h Vp_h^T + d_probs / H and the row sum of dP * P.
-  const float* dpr = d_probs ? d_probs + qrow * nk : nullptr;
+  const bool valid = lane < nk && mask[static_cast<size_t>(b) * nk + lane] != 0;
+  const unsigned valid_keys = __ballot_sync(0xffffffffu, valid);
   const float inv_heads = 1.f / static_cast<float>(heads);
-  float dot = 0.f;
-  for (int j = lane; j < nk; j += 32) {
-    const float pj = ph[j] / sum;
-    ph[j] = pj;
-    const float* vr = vb + static_cast<size_t>(j) * e;
-    float dp = 0.f;
-    for (int d = 0; d < hd; ++d) dp += gh[d] * vr[d];
-    if (dpr) dp += dpr[j] * inv_heads;
-    dsh[j] = dp;
-    dot += dp * pj;
-  }
-  dot = warp_sum(dot);
-
-  const size_t base = ((static_cast<size_t>(b) * heads + h) * nq + q) * nk;
-  for (int j = lane; j < nk; j += 32) {
-    const float pj = ph[j];
-    const float g = mb[j] ? pj * (dsh[j] - dot) : 0.f;
-    dsh[j] = g;
-    p_heads[base + j] = pj;
-    ds_heads[base + j] = g;
-  }
-  __syncwarp();
-  for (int d = lane; d < hd; d += 32) {
-    float acc = 0.f;
-    for (int j = 0; j < nk; ++j) acc += dsh[j] * kb[static_cast<size_t>(j) * e + d];
-    d_qp[qrow * e + h * hd + d] = acc * scale;
+  const size_t slab = (static_cast<size_t>(blockIdx.x) * batch + b) * nk * e;
+  bool first = true;
+  for (int q0 = blockIdx.x * kRows; q0 < nq; q0 += gridDim.x * kRows) {
+    const int rows_here = min(kRows, nq - q0);
+    for (int r = warp; r < rows_here; r += kShortThreads / 32) {
+      const size_t qrow = static_cast<size_t>(b) * nq + q0 + r;
+      float* qw = qs + r * padded;
+      float* gw = gs + r * padded;
+      float* pw = ps + r * pairs;
+      float* dw = ds + r * pairs;
+      for (int i = lane; i < e; i += 32) {
+        qw[(i / hd) * hp + i % hd] = qp[qrow * e + i] * scale;
+        gw[(i / hd) * hp + i % hd] = d_ctx[qrow * e + i];
+      }
+      __syncwarp();
+      // Logits and dP: a lane per (key, head) pair, pair = key * heads + head.
+      const float* dpr = d_probs ? d_probs + qrow * nk : nullptr;
+      for (int pair = lane; pair < pairs; pair += 32) {
+        const float* kr = ks + pair * hp;
+        const float* vr = vs + pair * hp;
+        const float* qh = qw + (pair % heads) * hp;
+        const float* gh = gw + (pair % heads) * hp;
+        float s = 0.f, dp = 0.f;
+        for (int d = 0; d < hd; ++d) {
+          s += qh[d] * kr[d];
+          dp += gh[d] * vr[d];
+        }
+        if (dpr) dp += dpr[pair / heads] * inv_heads;
+        pw[pair] = ((valid_keys >> (pair / heads)) & 1u) ? s : -1e30f;
+        dw[pair] = dp;
+      }
+      __syncwarp();
+      // Softmax with the forward's arithmetic, the row sum and dS: a lane per head.
+      for (int h = lane; h < heads; h += 32) {
+        float m = -INFINITY, sum = 0.f, dot = 0.f;
+        for (int j = 0; j < nk; ++j) m = fmaxf(m, pw[j * heads + h]);
+        for (int j = 0; j < nk; ++j) {
+          const float ex = expf(pw[j * heads + h] - m);
+          pw[j * heads + h] = ex;
+          sum += ex;
+        }
+        for (int j = 0; j < nk; ++j) {
+          const float p = pw[j * heads + h] / sum;
+          pw[j * heads + h] = p;
+          dot += dw[j * heads + h] * p;
+        }
+        for (int j = 0; j < nk; ++j)
+          dw[j * heads + h] = ((valid_keys >> j) & 1u) ? pw[j * heads + h] * (dw[j * heads + h] - dot)
+                                                      : 0.f;
+      }
+      __syncwarp();
+      // dQp = scale * dS Kp: a lane per head dimension, heads in turn.
+      if (lane < hd) {
+        for (int h = 0; h < heads; ++h) {
+          float o = 0.f;
+          for (int j = 0; j < nk; ++j) o += dw[j * heads + h] * ks[j * padded + h * hp + lane];
+          d_qp[qrow * e + h * hd + lane] = o * scale;
+        }
+      }
+    }
+    __syncthreads();
+    // dKp = dS^T (scale Qp), dVp = P^T d_ctx over the group's rows, in row
+    // order: a thread per (key, column).
+    for (int idx = threadIdx.x; idx < nk * e; idx += kShortThreads) {
+      const int j = idx / e, col = idx % e;
+      const int h = col / hd, at = h * hp + col % hd;
+      float dk = 0.f, dv = 0.f;
+      for (int r = 0; r < rows_here; ++r) {
+        dk += ds[r * pairs + j * heads + h] * qs[r * padded + at];
+        dv += ps[r * pairs + j * heads + h] * gs[r * padded + at];
+      }
+      if (first) {
+        kp_part[slab + idx] = dk;
+        vp_part[slab + idx] = dv;
+      } else {   // the same thread added the earlier groups: order is fixed
+        kp_part[slab + idx] += dk;
+        vp_part[slab + idx] += dv;
+      }
+    }
+    first = false;
+    __syncthreads();   // before the next group overwrites the rows
   }
 }
 
-// d_kp[b, j, h, :] = scale * sum_q ds_heads[b, h, q, j] * qp[b, q, h, :]
-// d_vp[b, j, h, :] =         sum_q p_heads[b, h, q, j] * d_ctx[b, q, h, :]
-// One block per (key, batch row); warp (split, head) sums queries split,
-// split + splits, ...; lane per output dim (head dims <= 32).
-__global__ void __launch_bounds__(1024) attn_bwd_key_kernel(const float* __restrict__ qp,
-                                    const float* __restrict__ d_ctx,
-                                    const float* __restrict__ p_heads,
-                                    const float* __restrict__ ds_heads,
-                                    float* __restrict__ d_kp,
-                                    float* __restrict__ d_vp,
-                                    int nq, int nk, int e, int heads,
-                                    int splits, float scale) {
-  extern __shared__ float part[];   // (splits, heads, 2, 32)
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int h = warp % heads;
-  const int split = warp / heads;
-  const int j = blockIdx.x;
-  const int b = blockIdx.y;
+// One chunk of 64 keys of one (batch row, head) against every query row, in
+// groups of 16. stats (B, H, Nq, 2): the forward's softmax max and sum of
+// each row. kPre (launched only when d_probs is given): writes the chunk's
+// sum of d_probs * P per row to dpp (B, H, Nq, chunks). Otherwise: reads
+// ctx and, when d_probs is given, dpp; writes the chunk's partial of d_qp to
+// slab blockIdx.x of qp_part (chunks, B, Nq, E) and the chunk's rows of
+// d_kp, d_vp (B, Nk, E). Grid (chunks, B * H).
+template <bool kPre>
+__global__ void __launch_bounds__(kChunkThreads)
+attn_bwd_chunk_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
+                      const float* __restrict__ vp, const unsigned char* __restrict__ mask,
+                      const float* __restrict__ ctx, const float* __restrict__ stats,
+                      const float* __restrict__ d_ctx, const float* __restrict__ d_probs,
+                      float* __restrict__ dpp, float* __restrict__ qp_part,
+                      float* __restrict__ d_kp, float* __restrict__ d_vp, int batch, int nq,
+                      int nk, int e, int heads, float scale) {
+  __shared__ float ks[kChunk][kMaxHeadDim + 1];
+  __shared__ float vs[kChunk][kMaxHeadDim + 1];
+  __shared__ float qs[kRows][kMaxHeadDim];
+  __shared__ float gs[kRows][kMaxHeadDim];
+  __shared__ float ss[kRows][kChunk];    // P
+  __shared__ float dss[kRows][kChunk];   // dS
+  __shared__ float row_max[kRows], row_sum[kRows], row_dot[kRows];
+  const int chunk = blockIdx.x, chunks = gridDim.x;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int hd = e / heads;
+  const int j0 = chunk * kChunk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t bh = static_cast<size_t>(b) * heads + h;
+  const float inv_heads = 1.f / static_cast<float>(heads);
 
-  float dk = 0.f, dv = 0.f;
-  if (lane < hd) {
-    const size_t base = (static_cast<size_t>(b) * heads + h) * nq * nk + j;
-    for (int q = split; q < nq; q += splits) {
-      const float pj = p_heads[base + static_cast<size_t>(q) * nk];
-      const float dsj = ds_heads[base + static_cast<size_t>(q) * nk];
-      const size_t row = (static_cast<size_t>(b) * nq + q) * e + h * hd + lane;
-      dv += pj * d_ctx[row];
-      dk += dsj * qp[row];
+  // Stage the head's slice of the chunk: hd / 4 float4 per key row.
+  const int per = hd / 4;
+  for (int i = threadIdx.x; i < kChunk * (kMaxHeadDim / 4); i += kChunkThreads) {
+    const int j = i / (kMaxHeadDim / 4), c = i % (kMaxHeadDim / 4);
+    float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+    if (j0 + j < nk && c < per) {
+      const size_t at = (static_cast<size_t>(b) * nk + j0 + j) * e + h * hd + c * 4;
+      kv = *reinterpret_cast<const float4*>(kp + at);
+      if (!kPre) vv = *reinterpret_cast<const float4*>(vp + at);
     }
+    ks[j][c * 4 + 0] = kv.x, ks[j][c * 4 + 1] = kv.y, ks[j][c * 4 + 2] = kv.z, ks[j][c * 4 + 3] = kv.w;
+    vs[j][c * 4 + 0] = vv.x, vs[j][c * 4 + 1] = vv.y, vs[j][c * 4 + 2] = vv.z, vs[j][c * 4 + 3] = vv.w;
   }
-  float* mine = part + (static_cast<size_t>(split) * heads + h) * 64;
-  mine[lane] = dk;
-  mine[32 + lane] = dv;
-  __syncthreads();
-  if (split == 0 && lane < hd) {
-    float dk_sum = 0.f, dv_sum = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const float* theirs = part + (static_cast<size_t>(s) * heads + h) * 64;
-      dk_sum += theirs[lane];
-      dv_sum += theirs[32 + lane];
+  // This thread's key in the logit step, and the keys whose dKp, dVp it owns.
+  const int jl = threadIdx.x % kChunk;
+  const int r0 = (threadIdx.x / kChunk) * (kRows / 2);
+  const bool exists = j0 + jl < nk;
+  const bool live = exists && mask[static_cast<size_t>(b) * nk + j0 + jl] != 0;
+  constexpr int kOwn = kChunk / (kChunkThreads / 32);   // 16 keys per warp
+  float dk[kOwn] = {}, dv[kOwn] = {};
+
+  for (int q0 = 0; q0 < nq; q0 += kRows) {
+    for (int i = threadIdx.x; i < kRows * kMaxHeadDim; i += kChunkThreads) {
+      const int r = i / kMaxHeadDim, d = i % kMaxHeadDim;
+      const bool in = q0 + r < nq && d < hd;
+      const size_t at = (static_cast<size_t>(b) * nq + q0 + r) * e + h * hd + d;
+      qs[r][d] = in ? qp[at] * scale : 0.f;
+      if (!kPre) gs[r][d] = in ? d_ctx[at] : 0.f;
     }
-    const size_t out = (static_cast<size_t>(b) * nk + j) * e + h * hd + lane;
-    d_kp[out] = dk_sum * scale;
-    d_vp[out] = dv_sum;
+    if (threadIdx.x < kRows && q0 + threadIdx.x < nq) {
+      const size_t row = bh * nq + q0 + threadIdx.x;
+      row_max[threadIdx.x] = stats[row * 2];
+      row_sum[threadIdx.x] = stats[row * 2 + 1];
+    }
+    __syncthreads();
+
+    if (!kPre) {
+      // rowsum(dP * P) = d_ctx_h . ctx_h (+ the chunks' d_probs shares / H).
+      for (int r = warp; r < kRows && q0 + r < nq; r += kChunkThreads / 32) {
+        const size_t qrow = static_cast<size_t>(b) * nq + q0 + r;
+        float dot = lane < hd ? gs[r][lane] * ctx[qrow * e + h * hd + lane] : 0.f;
+        dot = warp_sum(dot);
+        if (d_probs) {
+          float share = 0.f;
+          for (int c = 0; c < chunks; ++c) share += dpp[(bh * nq + q0 + r) * chunks + c];
+          dot += share * inv_heads;
+        }
+        if (lane == 0) row_dot[r] = dot;
+      }
+    }
+    // Logits and dP: thread = (key, half of the group's rows).
+    float s[kRows / 2] = {}, dp[kRows / 2] = {};
+    for (int d = 0; d < hd; ++d) {
+      const float kv = ks[jl][d], vv = vs[jl][d];
+#pragma unroll
+      for (int i = 0; i < kRows / 2; ++i) {
+        s[i] += qs[r0 + i][d] * kv;
+        if (!kPre) dp[i] += gs[r0 + i][d] * vv;
+      }
+    }
+    __syncthreads();   // row_dot is there
+#pragma unroll
+    for (int i = 0; i < kRows / 2; ++i) {
+      const int r = r0 + i;
+      float p = 0.f, g = 0.f;
+      if (q0 + r < nq && exists) {
+        p = expf((live ? s[i] : -1e30f) - row_max[r]) / row_sum[r];
+        if (!kPre) {
+          float dpv = dp[i];
+          if (d_probs)
+            dpv += d_probs[(static_cast<size_t>(b) * nq + q0 + r) * nk + j0 + jl] * inv_heads;
+          g = live ? p * (dpv - row_dot[r]) : 0.f;
+        }
+      }
+      ss[r][jl] = p;
+      dss[r][jl] = g;
+    }
+    __syncthreads();
+
+    if (kPre) {
+      // The chunk's sum of d_probs * P per row: a warp per row.
+      for (int r = warp; r < kRows && q0 + r < nq; r += kChunkThreads / 32) {
+        const float* dpr = d_probs + (static_cast<size_t>(b) * nq + q0 + r) * nk + j0;
+        float v = 0.f;
+        if (j0 + lane < nk) v += ss[r][lane] * dpr[lane];
+        if (j0 + lane + 32 < nk) v += ss[r][lane + 32] * dpr[lane + 32];
+        v = warp_sum(v);
+        if (lane == 0) dpp[(bh * nq + q0 + r) * chunks + chunk] = v;
+      }
+    } else {
+      // The chunk's partial of dQp = scale * dS Kp: a warp per row, a lane
+      // per head dimension.
+      for (int r = warp; r < kRows && q0 + r < nq; r += kChunkThreads / 32) {
+        float o = 0.f;
+        for (int j = 0; j < kChunk; ++j) o += dss[r][j] * ks[j][lane];
+        if (lane < hd)
+          qp_part[(static_cast<size_t>(chunk) * batch * nq + static_cast<size_t>(b) * nq + q0 + r) * e +
+                  h * hd + lane] = o * scale;
+      }
+      // dKp += dS^T (scale Qp), dVp += P^T d_ctx over the group's rows: a
+      // lane per head dimension, 16 keys per warp, kept in registers.
+#pragma unroll
+      for (int i = 0; i < kOwn; ++i) {
+        const int j = warp * kOwn + i;
+        for (int r = 0; r < kRows; ++r) {
+          dk[i] += dss[r][j] * qs[r][lane];
+          dv[i] += ss[r][j] * gs[r][lane];
+        }
+      }
+    }
+    __syncthreads();   // before the next group overwrites the rows
+  }
+  if (!kPre && lane < hd) {
+#pragma unroll
+    for (int i = 0; i < kOwn; ++i) {
+      const int j = j0 + warp * kOwn + i;
+      if (j >= nk) continue;
+      const size_t at = (static_cast<size_t>(b) * nk + j) * e + h * hd + lane;
+      d_kp[at] = dk[i];
+      d_vp[at] = dv[i];
+    }
   }
 }
-
-inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace
 
 CMT_DEFINE_ERROR_STRING
 
+// One product of gemm_kernel alone, for tests and measurements. form 1
+// (kNT): y (rows, e) = a (rows, e) @ b^T, b (e, e). form 2 (kTN): for each
+// chunk s of 256 rows of a, b (rows, e): y[s] (e, e) = a^T b over the chunk
+// and colsum[s] (e,) the column sums of b over it.
+CMT_EXPORT int fused_mha_bwd_gemm(const float* a, const float* b, float* y, float* colsum,
+                                  int rows, int e, int form, void* stream_ptr) {
+  if (e % 4 || (form != gemm3::kNT && form != gemm3::kTN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  GemmBatch g{{a}, {b}, {y}, {colsum}, {rows}, {form}, 1};
+  return launch_gemm(g, e, static_cast<cudaStream_t>(stream_ptr));
+}
+
 // Inputs: q (B, Nq, E), k/v (B, Nk, E), mask (B, Nk) bool, w* (E, E) applied
-// as x @ w; qp, kp, vp, ctx as the forward wrote them; d_out (B, Nq, E);
-// d_probs (B, Nq, Nk) or null. Scratch: d_ctx, d_qp (B, Nq, E); d_kp, d_vp
-// (B, Nk, E); p_heads, ds_heads (B, H, Nq, Nk); w_partial (4, weight_splits,
-// E, E). Outputs: d_q, d_k, d_v and the eight parameter gradients. All
-// float32 except the mask. heads * key_splits <= 32.
+// as x @ w; qp, kp, vp, ctx and (key_chunks > 0) stats (B, heads, Nq, 2) as
+// the forward wrote them; d_out (B, Nq, E); d_probs (B, Nq, Nk) or null.
+// Outputs: d_q, d_k, d_v and the eight parameter gradients. All float32
+// except the mask, all 16-byte aligned; E % 4 == 0, (E / heads) % 4 == 0,
+// E / heads <= 32. key_chunks as the forward's: 0 takes the short-key pass
+// (Nk <= 32), otherwise it must be ceil(Nk / 64).
+// scratch holds at least, in floats, with n_q = B Nq E, n_k = B Nk E,
+// s_q = ceil(B Nq / 256), s_k = ceil(B Nk / 256), G = min(ceil(Nq / 16), 64):
+//   2 n_q + 2 n_k                          d_ctx, d_qp, d_kp, d_vp
+//   + (2 s_q + 2 s_k) (E E + E)            row-chunk partials of d_W*, d_b*
+//   + (key_chunks == 0 and G > 1 ? 2 G n_k : 0)      block partials of d_kp, d_vp
+//   + (key_chunks > 1 ? key_chunks n_q : 0)          chunk partials of d_qp
+//   + (key_chunks > 0 ? B heads Nq key_chunks : 0)   chunk shares of d_probs * P
+// (ops/attention.py::_bwd_scratch_floats states the same sum).
 CMT_EXPORT int fused_mha_bwd(
     const float* q, const float* k, const float* v, const unsigned char* mask,
     const float* wq, const float* wk, const float* wv, const float* wo,
     const float* qp, const float* kp, const float* vp, const float* ctx,
-    const float* d_out, const float* d_probs,
-    float* d_ctx, float* d_qp, float* d_kp, float* d_vp, float* p_heads,
-    float* ds_heads, float* w_partial,
+    const float* stats, const float* d_out, const float* d_probs,
+    float* scratch, long long scratch_floats,
     float* d_q, float* d_k, float* d_v, float* d_wq, float* d_bq, float* d_wk,
     float* d_bk, float* d_wv, float* d_bv, float* d_wo, float* d_bo,
-    int batch, int nq, int nk, int e, int heads, int key_splits,
-    int weight_splits, float scale, void* stream_ptr) {
+    int batch, int nq, int nk, int e, int heads, int key_chunks, float scale,
+    void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rq = batch * nq, rk = batch * nk;
-  const int max_rows = rq > rk ? rq : rk;
-  const int e_tiles = ceil_div(e, kTile);
+  const int hd = e / heads;
+  if (e % 4 || hd % 4 || hd > kMaxHeadDim || hd * heads != e)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (key_chunks == 0 ? nk > kShortKeys : key_chunks != ceil_div(nk, kChunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (key_chunks > 0 && stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
 
-  // 1. d_ctx = d_out Wo^T: A = d_out (rq, E), B(k, c) = wo[c * E + k].
-  GemmBatch g_ctx{{d_out}, {wo}, {d_ctx}, {rq}, {e}};
-  gemm_kernel<<<dim3(e_tiles, ceil_div(rq, kTile), 1), kGemmThreads, 0, stream>>>(
-      g_ctx, e, 1, e, 1, 1, e);
-  CMT_CHECK_LAUNCH();
-
-  // 2. Per query row: P, dS, d_qp.
-  const size_t smem_q = 2 * (static_cast<size_t>(e) + static_cast<size_t>(heads) * nk) * sizeof(float);
-  int rc = cmt_set_smem(attn_bwd_query_kernel, smem_q);
-  if (rc != 0) return rc;
-  attn_bwd_query_kernel<<<dim3(nq, batch), heads * 32, smem_q, stream>>>(
-      qp, kp, vp, mask, d_ctx, d_probs, p_heads, ds_heads, d_qp, nq, nk, e,
-      heads, scale);
-  CMT_CHECK_LAUNCH();
-
-  // 3. Per key: d_kp, d_vp.
-  const size_t smem_k = static_cast<size_t>(key_splits) * heads * 64 * sizeof(float);
-  attn_bwd_key_kernel<<<dim3(nk, batch), key_splits * heads * 32, smem_k, stream>>>(
-      qp, d_ctx, p_heads, ds_heads, d_kp, d_vp, nq, nk, e, heads, key_splits, scale);
-  CMT_CHECK_LAUNCH();
-
-  // 4. d_q = d_qp Wq^T, d_k = d_kp Wk^T, d_v = d_vp Wv^T.
-  GemmBatch g_in{{d_qp, d_kp, d_vp}, {wq, wk, wv}, {d_q, d_k, d_v},
-                 {rq, rk, rk}, {e, e, e}};
-  gemm_kernel<<<dim3(e_tiles, ceil_div(max_rows, kTile), 3), kGemmThreads, 0, stream>>>(
-      g_in, e, 1, e, 1, 1, e);
-  CMT_CHECK_LAUNCH();
-
-  // 5. Partial x^T dy sums: A(i, r) = x[r * E + i], B(r, c) = dy[r * E + c].
+  const size_t n_q = static_cast<size_t>(rq) * e, n_k = static_cast<size_t>(rk) * e;
   const size_t ee = static_cast<size_t>(e) * e;
-  float* part[4];
-  for (int i = 0; i < 4; ++i) part[i] = w_partial + i * weight_splits * ee;
-  GemmBatch g_w{{q, k, v, ctx}, {d_qp, d_kp, d_vp, d_out},
-                {part[0], part[1], part[2], part[3]}, {e, e, e, e},
-                {rq, rk, rk, rq}};
-  gemm_kernel<<<dim3(e_tiles, e_tiles, 4 * weight_splits), kGemmThreads, 0, stream>>>(
-      g_w, e, weight_splits, 1, e, e, 1);
-  CMT_CHECK_LAUNCH();
+  const int sq = ceil_div(rq, kRowChunk), sk = ceil_div(rk, kRowChunk);
+  const int short_blocks = min(ceil_div(nq, kRows), kMaxShortBlocks);
+  float* d_ctx = scratch;
+  float* d_qp = d_ctx + n_q;
+  float* d_kp = d_qp + n_q;
+  float* d_vp = d_kp + n_k;
+  float* w_part = d_vp + n_k;                                   // wq, wk, wv, wo
+  float* b_part = w_part + (2 * static_cast<size_t>(sq) + 2 * sk) * ee;
+  float* attn_part = b_part + (2 * static_cast<size_t>(sq) + 2 * sk) * e;
+  size_t need = static_cast<size_t>(attn_part - scratch);
+  if (key_chunks == 0) {
+    if (short_blocks > 1) need += 2 * short_blocks * n_k;
+  } else {
+    if (key_chunks > 1) need += key_chunks * n_q;
+    need += static_cast<size_t>(batch) * heads * nq * key_chunks;
+  }
+  if (static_cast<long long>(need) > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
 
-  // 6. The weight gradients: partials added in split order.
-  SumBatch sums{{part[0], part[1], part[2], part[3]}, {d_wq, d_wk, d_wv, d_wo}};
-  sum_splits_kernel<<<dim3(ceil_div(static_cast<int>(ee), 256), 4), 256, 0, stream>>>(
-      sums, static_cast<int>(ee), weight_splits);
-  CMT_CHECK_LAUNCH();
+  // Row-chunk partials; a gradient with one chunk is written in place.
+  const int splits[4] = {sq, sk, sk, sq};
+  float* const d_w[4] = {d_wq, d_wk, d_wv, d_wo};
+  float* const d_b[4] = {d_bq, d_bk, d_bv, d_bo};
+  float* w_to[4];
+  float* b_to[4];
+  {
+    float* wp = w_part;
+    float* bp = b_part;
+    for (int i = 0; i < 4; ++i) {
+      w_to[i] = splits[i] == 1 ? d_w[i] : wp;
+      b_to[i] = splits[i] == 1 ? d_b[i] : bp;
+      wp += splits[i] * ee;
+      bp += static_cast<size_t>(splits[i]) * e;
+    }
+  }
 
-  // 7. The bias gradients.
-  ColBatch cols{{d_qp, d_kp, d_vp, d_out}, {d_bq, d_bk, d_bv, d_bo}, {rq, rk, rk, rq}};
-  colsum_kernel<<<dim3(ceil_div(e, 32), 4), dim3(32, 32), 0, stream>>>(cols, e);
-  CMT_CHECK_LAUNCH();
-  return 0;
+  // 1. d_ctx = d_out Wo^T; partials of d_Wo = ctx^T d_out and d_bo.
+  GemmBatch g1{{d_out, ctx}, {wo, d_out}, {d_ctx, w_to[3]}, {nullptr, b_to[3]}, {rq, rq},
+               {gemm3::kNT, gemm3::kTN}, 2};
+  int rc = launch_gemm(g1, e, stream);
+  if (rc != 0) return rc;
+
+  // 2. and 3. The attention pass and the join of its partials.
+  SumBatch join{};
+  if (key_chunks == 0) {
+    float* kp_part = short_blocks == 1 ? d_kp : attn_part;
+    float* vp_part = short_blocks == 1 ? d_vp : attn_part + short_blocks * n_k;
+    const size_t smem = short_smem_floats(nk, e, heads) * sizeof(float);
+    rc = cmt_set_smem(attn_bwd_short_kernel, smem);
+    if (rc != 0) return rc;
+    attn_bwd_short_kernel<<<dim3(short_blocks, batch), kShortThreads, smem, stream>>>(
+        qp, kp, vp, mask, d_ctx, d_probs, d_qp, kp_part, vp_part, batch, nq, nk, e, heads, scale);
+    CMT_CHECK_LAUNCH();
+    add_sum(join, kp_part, d_kp, n_k, short_blocks);
+    add_sum(join, vp_part, d_vp, n_k, short_blocks);
+  } else {
+    float* qp_part = key_chunks == 1 ? d_qp : attn_part;
+    float* dpp = attn_part + (key_chunks == 1 ? 0 : key_chunks * n_q);
+    const dim3 grid(key_chunks, batch * heads);
+    if (d_probs != nullptr) {
+      attn_bwd_chunk_kernel<true><<<grid, kChunkThreads, 0, stream>>>(
+          qp, kp, vp, mask, ctx, stats, d_ctx, d_probs, dpp, qp_part, d_kp, d_vp, batch, nq, nk,
+          e, heads, scale);
+      CMT_CHECK_LAUNCH();
+    }
+    attn_bwd_chunk_kernel<false><<<grid, kChunkThreads, 0, stream>>>(
+        qp, kp, vp, mask, ctx, stats, d_ctx, d_probs, dpp, qp_part, d_kp, d_vp, batch, nq, nk, e,
+        heads, scale);
+    CMT_CHECK_LAUNCH();
+    add_sum(join, qp_part, d_qp, n_q, key_chunks);
+  }
+  rc = launch_sums(join, stream);
+  if (rc != 0) return rc;
+
+  // 4. d_q = d_qp Wq^T, d_k = d_kp Wk^T, d_v = d_vp Wv^T; partials of
+  // d_Wq = q^T d_qp, d_Wk, d_Wv and of the three bias gradients.
+  GemmBatch g2{{d_qp, d_kp, d_vp, q, k, v},
+               {wq, wk, wv, d_qp, d_kp, d_vp},
+               {d_q, d_k, d_v, w_to[0], w_to[1], w_to[2]},
+               {nullptr, nullptr, nullptr, b_to[0], b_to[1], b_to[2]},
+               {rq, rk, rk, rq, rk, rk},
+               {gemm3::kNT, gemm3::kNT, gemm3::kNT, gemm3::kTN, gemm3::kTN, gemm3::kTN},
+               6};
+  rc = launch_gemm(g2, e, stream);
+  if (rc != 0) return rc;
+
+  // 5. The weight and bias gradients: row chunks added in chunk order.
+  SumBatch sums{};
+  for (int i = 0; i < 4; ++i) {
+    add_sum(sums, w_to[i], d_w[i], ee, splits[i]);
+    add_sum(sums, b_to[i], d_b[i], e, splits[i]);
+  }
+  return launch_sums(sums, stream);
 }

@@ -14,6 +14,10 @@ bo`` (E,) — because that is the layout the kernels read.
 * backward: kernel B3 (``csrc/fused_mha_bwd.cu``, the custom VJP
   ``pallas_multihead_attention_trainable``); its plain version is
   :func:`multihead_attention_backward`, written out with tensor ops.
+  :func:`multihead_attention_backward_tiled` and :func:`bwd_tile_plan` state
+  the kernel's own rules (query-row groups, key chunks with the row-sum
+  identity, the flat tile grid with row-chunk partials) in plain PyTorch for
+  the tests and ``chip_smoke.py``; the port never calls them.
 
 :class:`FusedMHA` ties the two into one ``torch.autograd.Function``. For
 CUDA tensors both directions launch their kernel or raise; the plain
@@ -39,10 +43,14 @@ _WEIGHT_NAMES = ("wq", "wk", "wv", "wo")
 # more are split into chunks of _KEY_CHUNK keys (csrc/fused_mha.cu).
 _SHORT_KEYS = 32
 _KEY_CHUNK = 64
-# Query splits of B3's per-key reduction: warps = heads * splits <= 32.
-_BWD_KEY_SPLITS = 4
-# Row splits of B3's weight-gradient GEMMs (partials summed in split order).
-_BWD_WEIGHT_SPLITS = 8
+# B3 (csrc/fused_mha_bwd.cu): query rows of one group of its attention
+# passes, the most blocks per batch row of the short-key pass, and the rows of
+# one partial of a weight gradient (partials are added in chunk order).
+_BWD_ROWS = 16
+_BWD_MAX_SHORT_BLOCKS = 64
+_BWD_ROW_CHUNK = 256
+# What an autograd node of FusedMHA keeps of the forward, after the inputs.
+SAVED_NAMES = ("qp", "kp", "vp", "ctx", "stats")
 
 Params = Dict[str, torch.Tensor]
 
@@ -143,17 +151,127 @@ def multihead_attention_backward(params: Params, query: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Kernel B3's rules in plain PyTorch (tests and chip_smoke.py only)
+# ---------------------------------------------------------------------------
+
+def multihead_attention_backward_tiled(params: Params, query: torch.Tensor,
+                                       key: torch.Tensor, value: torch.Tensor,
+                                       num_heads: int, key_mask: torch.Tensor,
+                                       d_out: torch.Tensor,
+                                       d_probs: Optional[torch.Tensor]
+                                       ) -> Tuple[Params, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The algorithm of ``csrc/fused_mha_bwd.cu`` step by step, with the
+    results of :func:`multihead_attention_backward`.
+
+    Up to ``_SHORT_KEYS`` keys: blocks of ``_BWD_ROWS`` query rows (at most
+    ``_BWD_MAX_SHORT_BLOCKS`` blocks per batch row, a block then takes
+    several groups) recompute P, take dS and dQp row by row and sum dKp, dVp
+    over their rows; the blocks' partials are added in block order. More
+    keys: chunks of ``_KEY_CHUNK`` keys, each from the forward's softmax max
+    and sum per row and from ``rowsum(dP * P) = d_ctx_h . ctx_h +
+    (1/H) sum_j d_probs_j P_hj`` (the chunks' shares of the second term
+    added in chunk order), write their partial of dQp, added in chunk order,
+    and sum dKp, dVp over the query-row groups in order. Weight and bias
+    gradients are summed over chunks of ``_BWD_ROW_CHUNK`` rows in chunk
+    order."""
+    B, Nq, E = query.shape
+    Nk = key.shape[1]
+    q, k, v, p_full, scale = _head_probs(params, query, key, value, num_heads, key_mask)
+    logits = torch.where(key_mask[:, None, None, :], q @ k.transpose(-1, -2), _NEG_INF)
+    ctx = p_full @ v                                     # what the forward saved
+    d_ctx = _split_heads(d_out @ params["wo"].T, num_heads)
+    live = key_mask[:, None, None, :]
+    d_qp = torch.zeros_like(q)
+    d_kp, d_vp = torch.zeros_like(k), torch.zeros_like(v)
+    chunks = _key_chunks(Nk, E, num_heads)
+    if chunks == 0:
+        blocks = min(-(-Nq // _BWD_ROWS), _BWD_MAX_SHORT_BLOCKS)
+        for x in range(blocks):
+            part_k, part_v = torch.zeros_like(k), torch.zeros_like(v)
+            for q0 in range(x * _BWD_ROWS, Nq, blocks * _BWD_ROWS):
+                rows = slice(q0, q0 + _BWD_ROWS)
+                p = torch.softmax(logits[:, :, rows], dim=-1)
+                d_p = d_ctx[:, :, rows] @ v.transpose(-1, -2)
+                if d_probs is not None:
+                    d_p = d_p + d_probs[:, None, rows] / num_heads
+                d_s = torch.where(live, p * (d_p - (d_p * p).sum(-1, keepdim=True)), 0.0)
+                d_qp[:, :, rows] = d_s @ k * scale
+                part_k += d_s.transpose(-1, -2) @ q[:, :, rows]
+                part_v += p.transpose(-1, -2) @ d_ctx[:, :, rows]
+            d_kp += part_k
+            d_vp += part_v
+    else:
+        row_max = logits.amax(-1, keepdim=True)          # the forward's statistics
+        row_sum = torch.exp(logits - row_max).sum(-1, keepdim=True)
+        key_chunks = [slice(c * _KEY_CHUNK, (c + 1) * _KEY_CHUNK) for c in range(chunks)]
+        probs = [torch.exp(logits[..., c] - row_max) / row_sum for c in key_chunks]
+        row_dot = (d_ctx * ctx).sum(-1, keepdim=True)
+        if d_probs is not None:
+            share = torch.zeros_like(row_dot)
+            for c, p in zip(key_chunks, probs):
+                share += (d_probs[:, None, :, c] * p).sum(-1, keepdim=True)
+            row_dot = row_dot + share / num_heads
+        for c, p in zip(key_chunks, probs):
+            d_p = d_ctx @ v[:, :, c].transpose(-1, -2)
+            if d_probs is not None:
+                d_p = d_p + d_probs[:, None, :, c] / num_heads
+            d_s = torch.where(live[..., c], p * (d_p - row_dot), 0.0)
+            d_qp += d_s @ k[:, :, c] * scale
+            for q0 in range(0, Nq, _BWD_ROWS):
+                rows = slice(q0, q0 + _BWD_ROWS)
+                d_kp[:, :, c] += d_s[:, :, rows].transpose(-1, -2) @ q[:, :, rows]
+                d_vp[:, :, c] += p[:, :, rows].transpose(-1, -2) @ d_ctx[:, :, rows]
+    d_qp, d_kp, d_vp = _merge_heads(d_qp), _merge_heads(d_kp), _merge_heads(d_vp)
+
+    def by_row_chunks(x, dy):
+        x, dy = x.reshape(-1, E), dy.reshape(-1, E)
+        d_w, d_b = torch.zeros_like(params["wq"]), torch.zeros_like(params["bq"])
+        for r0 in range(0, x.shape[0], _BWD_ROW_CHUNK):
+            d_w += x[r0:r0 + _BWD_ROW_CHUNK].T @ dy[r0:r0 + _BWD_ROW_CHUNK]
+            d_b += dy[r0:r0 + _BWD_ROW_CHUNK].sum(dim=0)
+        return d_w, d_b
+
+    d_params = {}
+    for n, x, dy in (("q", query, d_qp), ("k", key, d_kp), ("v", value, d_vp),
+                     ("o", _merge_heads(ctx), d_out)):
+        d_params["w" + n], d_params["b" + n] = by_row_chunks(x, dy)
+    return (d_params, d_qp @ params["wq"].T, d_kp @ params["wk"].T,
+            d_vp @ params["wv"].T)
+
+
+def bwd_tile_plan(products, E: int):
+    """The flat tile grid of B3's ``gemm_kernel``: ``products`` is a list of
+    ``("nt", rows)`` (y (rows, E) = a @ b^T) and ``("tn", rows)`` (y (E, E) =
+    a^T b summed over ``rows`` rows in chunks of ``_BWD_ROW_CHUNK``). Returns
+    the tile width (64, or 32 when 64-wide tiles would not give each of the
+    132 SMs one) and, for each block index in order, ``(product, row chunk,
+    first row, first column)`` of the 32-row tile that block owns."""
+    def count(width):
+        return sum(-(-rows // 32) * -(-E // width) if form == "nt" else
+                   -(-E // 32) * -(-E // width) * -(-rows // _BWD_ROW_CHUNK)
+                   for form, rows in products)
+
+    width = 64 if count(64) >= 132 else 32
+    tiles_n = -(-E // width)
+    plan = []
+    for z, (form, rows) in enumerate(products):
+        row_tiles = -(-rows // 32) if form == "nt" else -(-E // 32)
+        for chunk in range(1 if form == "nt" else -(-rows // _BWD_ROW_CHUNK)):
+            plan += [(z, chunk, (t // tiles_n) * 32, (t % tiles_n) * width)
+                     for t in range(row_tiles * tiles_n)]
+    return width, plan
+
+
+# ---------------------------------------------------------------------------
 # The kernels' wrappers
 # ---------------------------------------------------------------------------
 
-def _check_cuda_inputs(params: Params, query, key, value, num_heads, key_mask,
-                       backward: bool = False):
+def _check_cuda_inputs(params: Params, query, key, value, num_heads, key_mask):
     """What the kernels take: float32, contiguous, 16-byte aligned, one CUDA
     device, at most 32 heads of at most 32 dims with E and the head size
-    multiples of 4 (16-byte loads), (B, Nk) bool mask, and a block's shared
-    memory holding one row (two for the backward) of E floats and of every
-    head's Nk probabilities. Returns the data pointers of query, key, value
-    and the parameters in ``PARAM_NAMES`` order."""
+    multiples of 4 (16-byte loads) and a (B, Nk) bool mask. Returns the data
+    pointers of query, key, value and the parameters in ``PARAM_NAMES``
+    order."""
     B, Nq, E = query.shape
     Nk = key.shape[1]
     if key.shape != (B, Nk, E) or value.shape != (B, Nk, E):
@@ -165,9 +283,6 @@ def _check_cuda_inputs(params: Params, query, key, value, num_heads, key_mask,
     if E % 4 or (E // num_heads) % 4:
         raise ValueError(f"fused_mha: E={E} and the head size {E // num_heads} "
                          "must be multiples of 4")
-    if (1 + backward) * (E + num_heads * Nk) * 4 > _MAX_SMEM_BYTES:
-        raise ValueError(f"fused_mha: {num_heads} heads x Nk={Nk} probabilities "
-                         "exceed a block's shared memory")
     if key_mask.shape != (B, Nk) or key_mask.dtype != torch.bool:
         raise ValueError("fused_mha: key_mask must be a (B, Nk) bool tensor")
     index = query.get_device()
@@ -193,24 +308,43 @@ def _check_cuda_inputs(params: Params, query, key, value, num_heads, key_mask,
 
 
 def _key_chunks(Nk: int, E: int, num_heads: int) -> int:
-    """How kernel B2 takes the keys: 0 = the short-key pass (every key and
-    value of a batch row, projected, in one block's shared memory beside the
-    rows of its 8 warps); otherwise the number of ``_KEY_CHUNK``-key chunks
-    of the split pass."""
+    """How kernels B2 and B3 take the keys: 0 = the short-key pass (every key
+    and value of a batch row, projected, in one block's shared memory beside
+    the rows of its 8 warps in B2, of its 16 query rows in B3); otherwise the
+    number of ``_KEY_CHUNK``-key chunks of the split pass. One rule for both
+    directions: only the split pass saves the softmax statistics that B3's
+    key chunks need."""
     padded = num_heads * (E // num_heads + 1)
     short_floats = Nk * (E + padded) + 8 * (padded + Nk * num_heads)
-    if Nk <= _SHORT_KEYS and short_floats * 4 <= _MAX_SMEM_BYTES:
+    short_floats_bwd = 2 * Nk * padded + _BWD_ROWS * 2 * (padded + Nk * num_heads)
+    if Nk <= _SHORT_KEYS and max(short_floats, short_floats_bwd) * 4 <= _MAX_SMEM_BYTES:
         return 0
     return -(-Nk // _KEY_CHUNK)
 
 
+def _bwd_scratch_floats(B: int, Nq: int, Nk: int, E: int, num_heads: int, chunks: int) -> int:
+    """Floats of kernel B3's one scratch allocation (the launcher in
+    ``csrc/fused_mha_bwd.cu`` lays it out and checks this size): d_ctx, d_qp,
+    d_kp, d_vp; the row-chunk partials of the four weight and bias gradients;
+    the short pass's block partials of d_kp, d_vp or the split pass's chunk
+    partials of d_qp and chunk shares of ``d_probs * P``."""
+    n_q, n_k = B * Nq * E, B * Nk * E
+    row_chunks = 2 * -(-B * Nq // _BWD_ROW_CHUNK) + 2 * -(-B * Nk // _BWD_ROW_CHUNK)
+    total = 2 * n_q + 2 * n_k + row_chunks * (E * E + E)
+    if chunks == 0:
+        blocks = min(-(-Nq // _BWD_ROWS), _BWD_MAX_SHORT_BLOCKS)
+        return total + (2 * blocks * n_k if blocks > 1 else 0)
+    return total + (chunks * n_q if chunks > 1 else 0) + B * num_heads * Nq * chunks
+
+
 def _launch_forward(params: Params, query, key, value, num_heads, key_mask,
                     keep_saved: bool = True):
-    """Kernel B2. Returns (out, probs, (qp, kp, vp, ctx)): the projected
-    queries, keys, values and the head-concatenated context it wrote on the
-    way, which the backward reuses; ``()`` instead when ``keep_saved`` is
-    false. Those four and the split pass's scratch share one allocation
-    that the call owns."""
+    """Kernel B2. Returns (out, probs, (qp, kp, vp, ctx, stats)): the
+    projected queries, keys, values and the head-concatenated context it
+    wrote on the way, and the split pass's softmax max and sum per (batch
+    row, head, query row) — empty after the short-key pass — which the
+    backward reuses; ``()`` instead when ``keep_saved`` is false. Those five
+    and the split pass's scratch share one allocation that the call owns."""
     pointers = _check_cuda_inputs(params, query, key, value, num_heads, key_mask)
     B, Nq, E = query.shape
     Nk = key.shape[1]
@@ -218,15 +352,17 @@ def _launch_forward(params: Params, query, key, value, num_heads, key_mask,
     chunks = _key_chunks(Nk, E, num_heads)
     n_q, n_k = B * Nq * E, B * Nk * E                 # multiples of 4: the parts stay aligned
     n_attn = B * num_heads * Nq * (Nk + chunks * (2 + E // num_heads)) if chunks else 0
-    buf = torch.empty(2 * n_q + 2 * n_k + n_attn, dtype=torch.float32, device=dev)
+    n_stats = 2 * B * num_heads * Nq if chunks else 0
+    buf = torch.empty(2 * n_q + 2 * n_k + n_stats + n_attn, dtype=torch.float32, device=dev)
     out = torch.empty_like(query)
     probs = torch.empty((B, Nq, Nk), dtype=torch.float32, device=dev)
     qp = buf.data_ptr()
     ctx, kp, vp = qp + 4 * n_q, qp + 8 * n_q, qp + 8 * n_q + 4 * n_k
+    stats = vp + 4 * n_k
     lib = kernels.library("fused_mha")
     rc = lib.fused_mha(*pointers[:3], key_mask.data_ptr(), *pointers[3:],
                        qp, kp, vp, ctx, out.data_ptr(), probs.data_ptr(),
-                       vp + 4 * n_k if chunks else None,
+                       stats + 4 * n_stats if chunks else None, stats if chunks else None,
                        B, Nq, Nk, E, num_heads, chunks, _scale(E // num_heads),
                        kernels.stream_handle(query))
     if rc:
@@ -234,59 +370,76 @@ def _launch_forward(params: Params, query, key, value, num_heads, key_mask,
     kernels.LAUNCHES["fused_mha"] += 1
     if not keep_saved:
         return out, probs, ()
-    parts = buf.split_with_sizes([n_q, n_q, n_k, n_k, n_attn])
+    parts = buf.split_with_sizes([n_q, n_q, n_k, n_k, n_stats, n_attn])
     return out, probs, (parts[0].view(B, Nq, E), parts[2].view(B, Nk, E),
-                        parts[3].view(B, Nk, E), parts[1].view(B, Nq, E))
+                        parts[3].view(B, Nk, E), parts[1].view(B, Nq, E), parts[4])
 
 
-def _launch_backward(params: Params, query, key, value, num_heads, key_mask,
-                     saved, d_out, d_probs):
-    """Kernel B3 on what B2 saved. Returns (d_params, d_q, d_k, d_v)."""
-    _check_cuda_inputs(params, query, key, value, num_heads, key_mask,
-                       backward=True)
+def _check_cotangents(query, Nk: int, d_out, d_probs):
+    """What kernel B3 takes for the cotangents: float32 on the query's device,
+    (B, Nq, E) and (B, Nq, Nk) or ``None``, contiguous (copied when autograd
+    hands over a strided one), ``d_out`` 16-byte aligned. Returns the pair,
+    ``d_out`` zero-filled when it was ``None``."""
+    B, Nq, E = query.shape
+    if d_out is None:
+        d_out = torch.zeros_like(query)
+    for name, t, shape in (("d_out", d_out, (B, Nq, E)), ("d_probs", d_probs, (B, Nq, Nk))):
+        if t is None:
+            continue
+        if t.shape != shape:
+            raise ValueError(f"fused_mha_bwd: {name} must be {shape}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_mha_bwd: {name} must be float32, got {t.dtype}")
+        if t.device != query.device:
+            raise ValueError(f"fused_mha_bwd: {name} is on {t.device}, expected {query.device}")
+    if not d_out.is_contiguous():
+        d_out = d_out.contiguous()
+    if d_probs is not None and not d_probs.is_contiguous():
+        d_probs = d_probs.contiguous()
+    if d_out.data_ptr() % 16:
+        raise ValueError("fused_mha_bwd: d_out must be 16-byte aligned")
+    return d_out, d_probs
+
+
+def _launch_backward(query, key, value, key_mask, weights, saved, num_heads,
+                     d_out, d_probs):
+    """Kernel B3 on what B2 checked and saved: ``weights`` in ``PARAM_NAMES``
+    order, ``saved`` in ``SAVED_NAMES`` order. Only the cotangents are
+    checked here. Returns the 11 gradients (d_q, d_k, d_v, then the
+    parameters' in ``PARAM_NAMES`` order) as views of one allocation, which
+    lives as long as any of them does; a second allocation is the kernel's
+    scratch."""
     B, Nq, E = query.shape
     Nk = key.shape[1]
     dev = query.device
-    qp, kp, vp, ctx = saved
-    d_out = torch.zeros_like(query) if d_out is None else d_out.contiguous()
-    cotangents = {"d_out": d_out}
-    if d_probs is not None:
-        cotangents["d_probs"] = d_probs = d_probs.contiguous()
-        if d_probs.shape != (B, Nq, Nk):
-            raise ValueError(f"fused_mha_bwd: d_probs must be {(B, Nq, Nk)}")
-    if d_out.shape != query.shape:
-        raise ValueError(f"fused_mha_bwd: d_out must be {tuple(query.shape)}")
-    for name, t in cotangents.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_mha_bwd: {name} must be float32, got {t.dtype}")
-    kernels.require_cuda_inputs("fused_mha_bwd", dev, qp=qp, kp=kp, vp=vp,
-                                ctx=ctx, **cotangents)
-
-    def empty(*shape):
-        return torch.empty(*shape, dtype=torch.float32, device=dev)
-
-    d_ctx, d_qp = torch.empty_like(query), torch.empty_like(query)
-    d_kp, d_vp = torch.empty_like(key), torch.empty_like(key)
-    p_heads, ds_heads = empty(B, num_heads, Nq, Nk), empty(B, num_heads, Nq, Nk)
-    w_partial = empty(4, _BWD_WEIGHT_SPLITS, E, E)
-    d_q, d_k, d_v = torch.empty_like(query), torch.empty_like(key), torch.empty_like(value)
-    d_params = {n: torch.empty_like(params[n]) for n in PARAM_NAMES}
-    key_splits = max(1, min(_BWD_KEY_SPLITS, 32 // num_heads, Nq))
-
+    d_out, d_probs = _check_cotangents(query, Nk, d_out, d_probs)
+    chunks = _key_chunks(Nk, E, num_heads)
+    n_q, n_k = B * Nq * E, B * Nk * E                 # multiples of 4: the parts stay aligned
+    n_scratch = _bwd_scratch_floats(B, Nq, Nk, E, num_heads, chunks)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    sizes = (n_q, n_k, n_k) + (E * E, E) * 4
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    base = grads.data_ptr()
+    out_ptrs = []
+    for n in sizes:
+        out_ptrs.append(base)
+        base += 4 * n
+    stats = saved[4]
     lib = kernels.library("fused_mha_bwd")
-    p = kernels.ptr
     rc = lib.fused_mha_bwd(
-        p(query), p(key), p(value), p(key_mask),
-        *(p(params[n]) for n in _WEIGHT_NAMES),
-        p(qp), p(kp), p(vp), p(ctx), p(d_out),
-        None if d_probs is None else p(d_probs),
-        p(d_ctx), p(d_qp), p(d_kp), p(d_vp), p(p_heads), p(ds_heads), p(w_partial),
-        p(d_q), p(d_k), p(d_v), *(p(d_params[n]) for n in PARAM_NAMES),
-        B, Nq, Nk, E, num_heads, key_splits, _BWD_WEIGHT_SPLITS,
-        _scale(E // num_heads), kernels.stream_handle(query))
-    kernels.check(lib, rc, "fused_mha_bwd")
+        query.data_ptr(), key.data_ptr(), value.data_ptr(), key_mask.data_ptr(),
+        *(w.data_ptr() for w in weights[::2]),
+        *(t.data_ptr() for t in saved[:4]), stats.data_ptr() if chunks else None,
+        d_out.data_ptr(), None if d_probs is None else d_probs.data_ptr(),
+        scratch.data_ptr(), n_scratch, *out_ptrs,
+        B, Nq, Nk, E, num_heads, chunks, _scale(E // num_heads),
+        kernels.stream_handle(query))
+    if rc:
+        kernels.check(lib, rc, "fused_mha_bwd")
     kernels.LAUNCHES["fused_mha_bwd"] += 1
-    return d_params, d_q, d_k, d_v
+    parts = grads.split_with_sizes(sizes)
+    return (parts[0].view(B, Nq, E), parts[1].view(B, Nk, E), parts[2].view(B, Nk, E),
+            *(g.view(E, E) if i % 2 == 0 else g for i, g in enumerate(parts[3:])))
 
 
 class FusedMHA(torch.autograd.Function):
@@ -313,16 +466,15 @@ class FusedMHA(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_out, d_probs):
         query, key, value, key_mask, *rest = ctx.saved_tensors
-        params = dict(zip(PARAM_NAMES, rest[:len(PARAM_NAMES)]))
-        saved = rest[len(PARAM_NAMES):]
+        weights, saved = rest[:len(PARAM_NAMES)], rest[len(PARAM_NAMES):]
         if query.device.type == "cpu":
             d_params, d_q, d_k, d_v = multihead_attention_backward(
-                params, query, key, value, ctx.num_heads, key_mask, d_out, d_probs)
-        else:
-            d_params, d_q, d_k, d_v = _launch_backward(
-                params, query, key, value, ctx.num_heads, key_mask, saved,
-                d_out, d_probs)
-        return (d_q, d_k, d_v, None, None, *(d_params[n] for n in PARAM_NAMES))
+                dict(zip(PARAM_NAMES, weights)), query, key, value, ctx.num_heads,
+                key_mask, d_out, d_probs)
+            return (d_q, d_k, d_v, None, None, *(d_params[n] for n in PARAM_NAMES))
+        d_q, d_k, d_v, *d_weights = _launch_backward(
+            query, key, value, key_mask, weights, saved, ctx.num_heads, d_out, d_probs)
+        return (d_q, d_k, d_v, None, None, *d_weights)
 
 
 def fused_mha(params: Params, query: torch.Tensor, key: torch.Tensor,

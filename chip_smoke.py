@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--batches N] [--profile TRACE_JSON]
+    python3 chip_smoke.py --b2-digest
 
 Two paths of the port are driven: multimodal inference
 (``MultimodalPredictor``) and fusion training (``FusionTrainer``).
@@ -24,14 +25,19 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    13 keys and 4 × 13 queries × 640 keys, partial key masks), at the
    training shapes (576) and on a ragged case (37 queries × 75 keys, one
    batch row with every key masked): out within rtol/atol 1e-4,
-   probabilities within rtol 1e-3 / atol 2e-3, a repeat bit-equal;
+   probabilities within rtol 1e-3 / atol 2e-3, a repeat bit-equal, and
+   what it keeps for B3 (projected q, k, v, the context, the split pass's
+   softmax max and sum) against plain products;
 4. kernel B3 ``fused_mha_bwd``, the gradient of B2, against its plain
    backward through ``torch.autograd`` on the card: the training shapes
-   (4 × 576 × 13 and 4 × 13 × 576) and the inference ones (640), partial key
-   masks plus one batch row with every key masked, with a non-zero
-   cotangent for the attention maps and once with none. Each of d_q, d_k,
-   d_v and the 8 parameter gradients within rtol = atol = 1e-4, all finite;
-   two runs on the same inputs bit-equal;
+   (4 × 576 × 13 and 4 × 13 × 576), the inference ones (640) and a ragged
+   case (37 queries × 101 keys), partial key masks plus one batch row with
+   every key masked, with a non-zero cotangent for the attention maps and
+   once with none. Each of d_q, d_k, d_v and the 8 parameter gradients
+   within rtol = atol = 1e-4, all finite; two runs on the same inputs
+   bit-equal; one wrapper launch per call, and the number of CUDA kernels
+   that call launched; the plain statement of the kernel's algorithm
+   (``multihead_attention_backward_tiled``) within the same bar;
 5. the inference path: ``MultimodalPredictor`` built from the three committed
    artifacts answers ``--batches`` batches of 4 seeded uint8 images at
    256². Launch counters are zeroed just before and read just after: B1
@@ -58,8 +64,14 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    never calls it), the inference slice's ms per batch and images per
    second, and the ms per train step and steps per second. ``--profile``
    adds ``torch.profiler`` breakdowns of one inference batch, of three train
-   steps and of 20 calls of B1 and B2 (device time of each sub-kernel) and
-   writes the batch's Chrome trace to the path given.
+   steps and of 20 calls of B1, B2 and B3 (device time of each sub-kernel;
+   B3 without and with a cotangent for the attention maps) and writes the
+   batch's Chrome trace to the path given.
+
+``--b2-digest`` builds B2 alone, runs it on the five shapes of phase 3 and
+prints the SHA-256 of ``out`` and ``probs`` per shape, then stops: copied
+into a checkout of another commit and run there, the script shows whether
+two versions of the kernel give the same bits.
 
 Prints JSON lines per phase, then the card's name and power limit, the
 kernel table line, and as its last line
@@ -89,6 +101,10 @@ TRAIN_NODES = 576          # FusionDataset's default node bucket
 TRAIN_RECORDS = 64
 TRAIN_EPOCHS = 2
 GRAD_NAMES = ("d_q", "d_k", "d_v", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
+# (name, queries, keys) of B2's checks: both directions at the inference and
+# the training bucket, and a ragged case.
+B2_SHAPES = (("rg2kg", 640, 13), ("kg2rg", 13, 640), ("rg2kg_576", TRAIN_NODES, 13),
+             ("kg2rg_576", 13, TRAIN_NODES), ("ragged_37x75", 37, 75))
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 on the CUDA
 # cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -289,9 +305,7 @@ def mha_inputs(torch, fusion_model, nq, nk, seed):
 def phase_fused_mha(torch, kernels, attention_mod, fusion_model):
     worst_out = worst_p = 0.0
     cases = {}
-    for name, nq, nk in (("rg2kg", 640, 13), ("kg2rg", 13, 640),
-                         ("rg2kg_576", TRAIN_NODES, 13), ("kg2rg_576", 13, TRAIN_NODES),
-                         ("ragged_37x75", 37, 75)):
+    for name, nq, nk in B2_SHAPES:
         params, q, k, mask = mha_inputs(torch, fusion_model, nq, nk, seed=nq)
         if name.startswith("ragged"):
             mask = mask.clone()
@@ -313,12 +327,22 @@ def phase_fused_mha(torch, kernels, attention_mod, fusion_model):
         plain_saved = (q @ params["wq"] + params["bq"], k @ params["wk"] + params["bk"],
                        k @ params["wv"] + params["bv"],
                        attention_mod._merge_heads(p_heads @ v_heads))
-        e_saved = {n: float((a - b).abs().max()) for n, a, b in
-                   zip(("qp", "kp", "vp", "ctx"), grad_out.grad_fn.saved_tensors[-4:], plain_saved)}
+        names = attention_mod.SAVED_NAMES
+        saved = dict(zip(names, grad_out.grad_fn.saved_tensors[-len(names):]))
+        e_saved = {n: float((saved[n] - b).abs().max()) for n, b in zip(names, plain_saved)}
+        if saved["stats"].numel():      # the split pass: each row's softmax max and sum
+            q_heads, k_heads, _, _, _ = attention_mod._head_probs(params, q, k, k, 8, mask)
+            logits = torch.where(mask[:, None, None, :], q_heads @ k_heads.transpose(-1, -2),
+                                 attention_mod._NEG_INF)
+            row_max = logits.amax(-1)
+            row_sum = torch.exp(logits - row_max[..., None]).sum(-1)
+            stats = saved["stats"].view(*row_max.shape, 2)
+            e_saved["stats_max"] = float((stats[..., 0] - row_max).abs().max())
+            e_saved["stats_sum_rel"] = float(((stats[..., 1] - row_sum) / row_sum).abs().max())
         ok = (torch.allclose(got_out, want_out, rtol=1e-4, atol=1e-4)
               and torch.allclose(got_p, want_p, rtol=1e-3, atol=2e-3)
               and bool(torch.isfinite(got_out).all()) and bool(torch.isfinite(got_p).all())
-              and repeat and launched == 1)
+              and repeat and launched == 1 and max(e_saved.values()) <= 1e-4)
         emit({"phase": "fused_mha_check", "direction": name, "nq": nq, "nk": nk,
               "max_abs_err_out": e_out, "max_abs_err_probs": e_p,
               "max_abs_err_saved": e_saved, "bit_equal_repeat": repeat, "launches": launched, "ok": ok})
@@ -328,6 +352,23 @@ def phase_fused_mha(torch, kernels, attention_mod, fusion_model):
         if name in ("rg2kg", "kg2rg"):
             cases[name] = (params, q, k, mask)
     return cases, max(worst_out, worst_p)
+
+
+def b2_digest(torch, attention_mod, fusion_model):
+    """SHA-256 of B2's ``out`` and ``probs`` on the shapes and inputs of
+    ``phase_fused_mha``: equal lines from two checkouts mean equal bits."""
+    import hashlib
+
+    for name, nq, nk in B2_SHAPES:
+        params, q, k, mask = mha_inputs(torch, fusion_model, nq, nk, seed=nq)
+        if name.startswith("ragged"):
+            mask = mask.clone()
+            mask[2] = False
+        out, probs = attention_mod.fused_mha(params, q, k, k, 8, mask)
+        torch.cuda.synchronize()
+        emit({"b2_digest": name, "nq": nq, "nk": nk,
+              "out": hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest(),
+              "probs": hashlib.sha256(probs.cpu().numpy().tobytes()).hexdigest()})
 
 
 def mha_bwd_case(torch, attention_mod, fusion_model, nq, nk):
@@ -368,25 +409,37 @@ def phase_fused_mha_bwd(torch, kernels, attention_mod, fusion_model):
     worst = 0.0
     cases = {}
     for name, nq, nk in (("rg2kg", TRAIN_NODES, 13), ("kg2rg", 13, TRAIN_NODES),
-                         ("rg2kg_640", 640, 13), ("kg2rg_640", 13, 640)):
+                         ("rg2kg_640", 640, 13), ("kg2rg_640", 13, 640),
+                         ("ragged_37x101", 37, 101)):
         leaves, mask, d_out, d_probs = mha_bwd_case(torch, attention_mod, fusion_model, nq, nk)
         for with_probs in (True, False):
             dp = d_probs if with_probs else None
             before = kernels.LAUNCHES["fused_mha_bwd"]
+            on_card = kernels.device_launches("fused_mha_bwd")
             got = kernel_grads(torch, attention_mod, leaves, mask, d_out, dp)
             torch.cuda.synchronize()
             launched = kernels.LAUNCHES["fused_mha_bwd"] - before
+            kernel_launches = kernels.device_launches("fused_mha_bwd") - on_card
             again = kernel_grads(torch, attention_mod, leaves, mask, d_out, dp)
             want = plain_grads(torch, attention_mod, leaves, mask, d_out, dp)
             errs = {n: float((a - b).abs().max()) for n, a, b in zip(GRAD_NAMES, got, want)}
             close = all(torch.allclose(a, b, rtol=1e-4, atol=1e-4) for a, b in zip(got, want))
             finite = all(bool(torch.isfinite(a).all()) for a in got)
             repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-            ok = close and finite and repeat and launched == 1
+            # The kernel's algorithm stated in plain PyTorch, on the same inputs.
+            q, k, v, *weights = (t.detach() for t in leaves)
+            d_params, *d_inputs = attention_mod.multihead_attention_backward_tiled(
+                dict(zip(attention_mod.PARAM_NAMES, weights)), q, k, v, HEADS, mask, d_out, dp)
+            tiled = (*d_inputs, *(d_params[n] for n in attention_mod.PARAM_NAMES))
+            tiled_close = all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                              for a, b in zip(tiled, want))
+            ok = (close and finite and repeat and launched == 1 and tiled_close
+                  and 0 < kernel_launches < 7)
             emit({"phase": "fused_mha_bwd_check", "direction": name, "nq": nq, "nk": nk,
                   "d_probs": with_probs, "max_abs_err": errs, "within_1e-4": close,
                   "finite": finite, "bit_equal_repeat": repeat, "launches": launched,
-                  "ok": ok})
+                  "kernel_launches_per_call": kernel_launches,
+                  "plain_tiled_within_1e-4": tiled_close, "ok": ok})
             if not ok:
                 fail(f"B3 fails its check ({name}, d_probs={with_probs})")
             worst = max(worst, *errs.values())
@@ -624,12 +677,13 @@ def phase_times(torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches
     return (b1_ms, b1_host, b1_plain, b1_bound, pairs), (b2, b2_bound)
 
 
-def phase_times_train(torch, attention_mod, b3_cases, trainer, ds, profile):
+def phase_times_train(torch, kernels, attention_mod, b3_cases, trainer, ds, profile):
     """B3, its plain backward and the library's backward per direction at
     the training shapes, B2 there too, and the train step."""
     F = torch.nn.functional
     names = attention_mod.PARAM_NAMES
     b3 = {}
+    b3_calls = {}
     for name in ("rg2kg", "kg2rg"):
         leaves, mask, d_out, d_probs = b3_cases[name]
         q, k, v, *weights = leaves
@@ -640,9 +694,18 @@ def phase_times_train(torch, attention_mod, b3_cases, trainer, ds, profile):
 
         out, probs = attention_mod.fused_mha(params, q, k, v, HEADS, mask)
 
-        def kernel():
+        # Defaults bind this direction's tensors: the calls outlive the loop.
+        def kernel(out=out, probs=probs, leaves=leaves, d_out=d_out, d_probs=d_probs):
             return torch.autograd.grad([out, probs], leaves, [d_out, d_probs],
                                        retain_graph=True)
+
+        def kernel_no_probs(out=out, leaves=leaves, d_out=d_out):
+            """What a train step calls: no cotangent for the attention maps."""
+            return torch.autograd.grad([out], leaves, [d_out], retain_graph=True)
+
+        on_card = kernels.device_launches("fused_mha_bwd")
+        kernel_no_probs()
+        kernel_launches = kernels.device_launches("fused_mha_bwd") - on_card
 
         detached = {n: w.detach() for n, w in params.items()}
         qd, kd, vd = q.detach(), k.detach(), v.detach()
@@ -678,8 +741,12 @@ def phase_times_train(torch, attention_mod, b3_cases, trainer, ds, profile):
                       + 4 * E * E              # the four weights
                       + Bq * Nq * E + 2 * Bq * Nk * E      # d_q, d_k, d_v
                       + 4 * E * E + 4 * E) + Bq * Nk       # parameter gradients, mask
+        b3_calls[name] = (kernel_no_probs, kernel)
         b3[name] = {
             "ms": cuda_ms(kernel), "host_ms": host_ms(kernel),
+            "ms_no_d_probs": cuda_ms(kernel_no_probs),
+            "host_ms_no_d_probs": host_ms(kernel_no_probs),
+            "kernel_launches_per_call": kernel_launches,
             "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
             "fused_mha_ms": cuda_ms(lambda: attention_mod.fused_mha(detached, qd, kd, vd, HEADS, mask)),
             # Batch row 2 has every key masked: the library call masks with
@@ -735,6 +802,13 @@ def phase_times_train(torch, attention_mod, b3_cases, trainer, ds, profile):
     emit({"phase": "train_step_parts", **parts})
     if profile:
         phase_profile(torch, "three train steps", lambda: steps(batches[:3]))
+        for i, what in enumerate(("no d_probs (as a train step calls it)", "with d_probs")):
+            def b3_twenty():
+                for _ in range(20):
+                    for calls in b3_calls.values():
+                        calls[i]()
+
+            phase_profile(torch, f"20 calls of B3 in each direction, {what}", b3_twenty)
     return b3, b3_bound
 
 
@@ -775,19 +849,6 @@ def phase_profile(torch, what, fn, trace=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    if trace:
-        os.makedirs(os.path.dirname(trace), exist_ok=True)
-        prof.export_chrome_trace(trace)
-    # A cmt:: range appears on the host and, as an annotation from the
-    # stage's first to its last device activity, on the card's timeline.
-    # Every other event on the card is a kernel or a copy.
-    events = prof.events()
     def on_card(ev):
         """A kernel or a copy: not a host range mirrored onto the card's
         timeline (the cmt:: stages, the optimizer's step annotation)."""
@@ -795,7 +856,25 @@ def phase_profile(torch, what, fn, trace=None):
                 and not getattr(ev, "is_user_annotation", False)
                 and not ev.name.startswith("Optimizer."))
 
-    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in events if on_card(ev))
+    # A short window now and then comes back without one device record;
+    # it is then taken again, up to three times in all.
+    for attempt in range(1, 4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # A cmt:: range appears on the host and, as an annotation from the
+        # stage's first to its last device activity, on the card's timeline.
+        # Every other event on the card is a kernel or a copy.
+        events = prof.events()
+        spans = sorted((ev.time_range.start, ev.time_range.end) for ev in events if on_card(ev))
+        if spans:
+            break
+    if trace:
+        os.makedirs(os.path.dirname(trace), exist_ok=True)
+        prof.export_chrome_trace(trace)
     by_kernel = {}
     stages = {}
     for ev in events:
@@ -814,7 +893,7 @@ def phase_profile(torch, what, fn, trace=None):
     busy_ms = busy_us(spans) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     host_top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:12]
-    emit({"phase": "profile", "of": what, "wall_ms": wall_ms,
+    emit({"phase": "profile", "of": what, "attempts": attempt, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms if spans else "not measured",
           "device_idle_share": 1 - busy_ms / wall_ms if spans else "not measured",
           "device_events": len(spans), "stages": stages,
@@ -833,6 +912,8 @@ def main() -> None:
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--profile", metavar="TRACE_JSON",
                     help="also profile one batch and write its Chrome trace here")
+    ap.add_argument("--b2-digest", action="store_true",
+                    help="print SHA-256 digests of B2's outputs on its check shapes and stop")
     args = ap.parse_args()
     trace = os.path.abspath(args.profile) if args.profile else None
 
@@ -858,6 +939,10 @@ def main() -> None:
             fail(f"missing artifact {path}")
     os.chdir(REPO)
 
+    if args.b2_digest:
+        fusion_model, _ = api.load_multimodal_model(ARTIFACTS[0], device="cuda")
+        b2_digest(torch, attention_mod, fusion_model)
+        return
     phase_build(kernels)
     b1 = phase_slic_assign(torch, slic_mod, synthetic_images(7, BATCH, SIZE))
     fusion_model, _ = api.load_multimodal_model(ARTIFACTS[0], device="cuda")
@@ -869,8 +954,8 @@ def main() -> None:
             torch, np, kernels, api, train_mod, out_dir)
     (b1_ms, b1_host, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
         torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches, trace)
-    b3, b3_bound = phase_times_train(torch, attention_mod, b3_cases, trainer, train_ds,
-                                     bool(trace))
+    b3, b3_bound = phase_times_train(torch, kernels, attention_mod, b3_cases, trainer,
+                                     train_ds, bool(trace))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -905,6 +990,10 @@ def main() -> None:
          "per": "2 launches: rg2kg (4x576 q, 13 k) + kg2rg (4x13 q, 576 k), E=256, 8 heads",
          "launches": train_launches["fused_mha_bwd"], "max_abs_err": b3_err,
          "ms": sum(v["ms"] for v in b3.values()),
+         "host_ms": sum(v["host_ms"] for v in b3.values()),
+         "ms_no_d_probs": sum(v["ms_no_d_probs"] for v in b3.values()),
+         "host_ms_no_d_probs": sum(v["host_ms_no_d_probs"] for v in b3.values()),
+         "kernel_launches_per_call": {n: v["kernel_launches_per_call"] for n, v in b3.items()},
          "plain_ms": sum(v["plain_ms"] for v in b3.values()),
          "bound_ms": b3_bound[0], "bound_by": b3_bound[1],
          "library_ms": sum(v["library_ms"] for v in b3.values())},

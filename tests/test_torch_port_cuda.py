@@ -159,6 +159,12 @@ def test_wrappers_check_inputs(dev):
              for n in A.PARAM_NAMES}
     with pytest.raises(ValueError, match="multiples of 4"):
         A.fused_mha(small, y, y, y, 4)
+    with pytest.raises(TypeError, match="d_out must be float32"):
+        A._check_cotangents(x, 4, x.double(), None)
+    with pytest.raises(ValueError, match="d_probs must be"):
+        A._check_cotangents(x, 4, x, torch.zeros(1, 4, 5, device=dev))
+    strided = torch.zeros(1, 64, 4, device=dev).transpose(1, 2)
+    assert A._check_cotangents(x, 4, strided, None)[0].is_contiguous()
 
 
 def test_slic_on_card_matches_cpu(dev):
@@ -189,12 +195,18 @@ def _mha_case(dev, nq, nk, e, seed):
 
 @pytest.mark.parametrize("with_probs", [True, False])
 @pytest.mark.parametrize("nq,nk,e,heads", [(576, 13, 256, 8), (13, 576, 256, 8),
-                                           (70, 1, 64, 4), (33, 700, 128, 8)])
+                                           (70, 1, 64, 4), (33, 700, 128, 8),
+                                           (37, 101, 64, 4), (5, 32, 64, 4), (3, 33, 32, 8),
+                                           (1100, 20, 64, 4), (40, 200, 64, 4)])
 def test_fused_mha_bwd_kernel_matches_plain(dev, nq, nk, e, heads, with_probs):
     """Kernel B3 through ``torch.autograd`` against its plain backward at
     1e-4 (tests/test_pallas.py:98-103), with a partly and a fully masked
     batch row, a live or an absent cotangent for the attention maps, and a
-    repeat that must be bit-equal (every sum in a fixed order)."""
+    repeat that must be bit-equal (every sum in a fixed order). Beside the
+    training shapes: a ragged one that is no multiple of any tile, chunk or
+    row group, both sides of the short-key / key-split boundary, more groups
+    of query rows than the short pass has blocks, and several key chunks
+    against several row groups."""
     params, q, k, v, mask, d_out, d_probs = _mha_case(dev, nq, nk, e, nq * nk)
     d_probs = d_probs if with_probs else None
     leaves = [t.clone().requires_grad_() for t in (q, k, v, *(params[n] for n in A.PARAM_NAMES))]
@@ -210,6 +222,9 @@ def test_fused_mha_bwd_kernel_matches_plain(dev, nq, nk, e, heads, with_probs):
     got = grads()
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["fused_mha_bwd"] == before + 1
+    on_card = kernels.device_launches("fused_mha_bwd")
+    grads()
+    assert 0 < kernels.device_launches("fused_mha_bwd") - on_card < 7
     d_params, d_q, d_k, d_v = A.multihead_attention_backward(
         params, q, k, v, heads, mask, d_out, d_probs)
     want = (d_q, d_k, d_v, *(d_params[n] for n in A.PARAM_NAMES))
@@ -218,6 +233,45 @@ def test_fused_mha_bwd_kernel_matches_plain(dev, nq, nk, e, heads, with_probs):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=lambda m: f"{name}: {m}")
     for a, b in zip(got, grads()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rows,e", [(2304, 256), (52, 256), (37, 64), (600, 132)])
+def test_gemm_header_transposed_forms(dev, rows, e):
+    """The two transposed forms of ``csrc/gemm_3xtf32.cuh`` alone, against
+    float64 products at 1e-5 of the result's largest entry: ``dy @ w^T`` and
+    ``x^T dy`` by chunks of 256 rows with the chunks' column sums of ``dy``
+    (the weight and bias gradients), at the training sizes and at ragged
+    ones (rows, width and chunk no multiple of a tile)."""
+    g = torch.Generator(device=dev).manual_seed(rows + e)
+    x = torch.relu(torch.randn(rows, e, generator=g, device=dev))
+    dy = torch.randn(rows, e, generator=g, device=dev)
+    w = torch.randn(e, e, generator=g, device=dev) / e ** 0.5
+    lib = kernels.library("fused_mha_bwd")
+    stream = kernels.stream_handle(x)
+
+    y = torch.full((rows, e), float("nan"), device=dev)
+    rc = lib.fused_mha_bwd_gemm(dy.data_ptr(), w.data_ptr(), y.data_ptr(), None, rows, e, 1, stream)
+    kernels.check(lib, rc, "fused_mha_bwd_gemm")
+    want = dy.double() @ w.double().T
+    assert float((y - want).abs().max() / want.abs().max()) <= 1e-5
+
+    chunks = -(-rows // A._BWD_ROW_CHUNK)
+    parts = torch.full((chunks, e, e), float("nan"), device=dev)
+    sums = torch.full((chunks, e), float("nan"), device=dev)
+    rc = lib.fused_mha_bwd_gemm(x.data_ptr(), dy.data_ptr(), parts.data_ptr(), sums.data_ptr(),
+                                rows, e, 2, stream)
+    kernels.check(lib, rc, "fused_mha_bwd_gemm")
+    torch.cuda.synchronize()
+    for c in range(chunks):
+        rs = slice(c * A._BWD_ROW_CHUNK, (c + 1) * A._BWD_ROW_CHUNK)
+        want = x[rs].double().T @ dy[rs].double()
+        assert float((parts[c] - want).abs().max() / want.abs().max()) <= 1e-5, c
+        want = dy[rs].double().sum(0)
+        assert float((sums[c] - want).abs().max() / want.abs().max()) <= 1e-5, c
+    again = torch.empty_like(parts)
+    lib.fused_mha_bwd_gemm(x.data_ptr(), dy.data_ptr(), again.data_ptr(), sums.data_ptr(),
+                           rows, e, 2, stream)
+    assert torch.equal(parts, again)
 
 
 def test_fused_mha_bwd_shared_key_value_and_strided_cotangent(dev):

@@ -1,4 +1,4 @@
-"""What the designs of the port's CUDA kernels B1 and B2 rest on, checked in
+"""What the designs of the port's CUDA kernels B1, B2 and B3 rest on, checked in
 plain PyTorch and numpy on the CPU (the kernels themselves run only on a
 card, ``tests/test_torch_port_cuda.py``):
 
@@ -13,6 +13,14 @@ card, ``tests/test_torch_port_cuda.py``):
 * B2's attention pass over many keys (``csrc/fused_mha.cu``) splits the keys
   into chunks of 64 and joins the chunks afterwards; a plain version of that
   join must equal ``multihead_attention``.
+* B3 (``csrc/fused_mha_bwd.cu``) takes the attention gradient by groups of 16
+  query rows (few keys) or by chunks of 64 keys that work alone, from the
+  forward's softmax statistics and a row-sum identity (many keys);
+  ``ops.attention.multihead_attention_backward_tiled`` states that algorithm
+  and must equal ``multihead_attention_backward``. Its eight products run on
+  the same tensor-core GEMM in two transposed forms; the weight gradients
+  are summed by chunks of 256 rows in chunk order over a flat tile grid
+  (``ops.attention.bwd_tile_plan``), whatever order the tiles run in.
 """
 
 import numpy as np
@@ -246,3 +254,179 @@ def test_key_chunk_rule_matches_the_main_path():
     assert A._key_chunks(640, 256, 8) == 10
     # 32 keys of a 1,024-wide model no longer fit one block's shared memory.
     assert A._key_chunks(32, 1024, 32) == 1
+
+
+# ---------------------------------------------------------------------------
+# B3: the tiled attention backward, the transposed products, the tile grid
+# ---------------------------------------------------------------------------
+
+def _bwd_case(nq, nk, e, dtype, with_probs, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda *shape: torch.from_numpy(rng.standard_normal(shape)).to(dtype)  # noqa: E731
+    params = {n: (t(e, e) / e ** 0.5 if n[0] == "w" else 0.1 * t(e)) for n in A.PARAM_NAMES}
+    q, k, v = t(3, nq, e), t(3, nk, e), t(3, nk, e)
+    mask = torch.arange(nk)[None] < torch.tensor([[nk], [max(1, nk // 3)], [0]])
+    return params, q, k, v, mask, t(3, nq, e), (t(3, nq, nk) if with_probs else None)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-6), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("with_probs", [True, False])
+@pytest.mark.parametrize("nq,nk,e,heads", [(576, 13, 256, 8), (13, 576, 256, 8),
+                                           (640, 13, 256, 8), (13, 640, 256, 8),
+                                           (37, 101, 64, 4), (1100, 20, 64, 4)])
+def test_tiled_backward_equals_plain(nq, nk, e, heads, with_probs, dtype, tol):
+    """B3's algorithm in plain PyTorch against the plain backward: 1e-6 in
+    float64 (the algorithm: row groups, key chunks that work alone through
+    the saved softmax statistics and ``rowsum(dP * P) = d_ctx . ctx +
+    sum(d_probs * P) / H``, partials joined in order, weight gradients by
+    row chunks), the kernel's 1e-4 bar in float32. Batch row 1 is partly
+    masked, batch row 2 has every key masked (uniform P, dS = 0)."""
+    params, q, k, v, mask, d_out, d_probs = _bwd_case(nq, nk, e, dtype, with_probs, nq * nk)
+    want = A.multihead_attention_backward(params, q, k, v, heads, mask, d_out, d_probs)
+    got = A.multihead_attention_backward_tiled(params, q, k, v, heads, mask, d_out, d_probs)
+    for n in A.PARAM_NAMES:
+        torch.testing.assert_close(got[0][n], want[0][n], rtol=tol, atol=tol, msg=lambda m: f"{n}: {m}")
+    for n, a, b in zip(("d_q", "d_k", "d_v"), got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol, msg=lambda m: f"{n}: {m}")
+    # The all-masked batch row gives its queries and keys no gradient, its values some.
+    assert float(got[1][2].abs().max()) == 0.0 and float(got[2][2].abs().max()) == 0.0
+    assert float(got[3][2].abs().max()) > 0.0
+
+
+def _split(x):
+    hi = _tf32_round(x)
+    return hi.astype(np.float64), _tf32_truncate(x - hi).astype(np.float64)
+
+
+def _three_and_one(a, b):
+    """a @ b from TF32 heads and tails, summed in float64: the three-term
+    split and plain TF32."""
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi, a_hi @ b_hi
+
+
+@pytest.mark.parametrize("name", ["wq", "wk", "wv", "wo"])
+@pytest.mark.parametrize("direction", ["rg2kg", "kg2rg"])
+def test_three_term_tf32_transposed_products(fusion_weights, direction, name):
+    """B3's two transposed products with the committed fusion weights, as
+    the extended GEMM header takes them. ``dy @ W^T`` (an input gradient):
+    three terms within 1e-5 of the float64 product relative to its largest
+    entry, one term at least 100 times worse. ``x^T dy`` over 2,304 rows (a
+    weight gradient, dy = g @ W^T) in chunks of 256 rows whose float32
+    partials are added in chunk order in float32, as the kernel adds them:
+    the same two bars."""
+    w = fusion_weights[direction, name]
+    rng = np.random.default_rng(7 + len(direction) + ord(name[1]))
+    g = rng.standard_normal((2304, 256)).astype(np.float32)
+    exact = g.astype(np.float64) @ w.astype(np.float64).T
+    three, one = _three_and_one(g, np.ascontiguousarray(w.T))
+    scale = np.abs(exact).max()
+    err_three, err_one = np.abs(three - exact).max() / scale, np.abs(one - exact).max() / scale
+    assert err_three <= 1e-5 and err_one >= 100 * err_three
+
+    x = np.maximum(rng.standard_normal((2304, 256)), 0).astype(np.float32)   # post-ReLU like
+    dy = exact.astype(np.float32)
+    exact_w = x.astype(np.float64).T @ dy.astype(np.float64)
+    sum_three = np.zeros((256, 256), np.float32)
+    sum_one = np.zeros((256, 256), np.float32)
+    for r0 in range(0, 2304, A._BWD_ROW_CHUNK):
+        rows = slice(r0, r0 + A._BWD_ROW_CHUNK)
+        three, one = _three_and_one(np.ascontiguousarray(x[rows].T), dy[rows])
+        sum_three += three.astype(np.float32)
+        sum_one += one.astype(np.float32)
+    scale = np.abs(exact_w).max()
+    err_three = np.abs(sum_three - exact_w).max() / scale
+    err_one = np.abs(sum_one - exact_w).max() / scale
+    assert err_three <= 1e-5 and err_one >= 100 * err_three
+
+
+def _run_plan(plan, width, products, operands, e, order):
+    """Execute the tiles of ``plan`` in ``order``: a "tn" tile adds its 256
+    rows one at a time in float32 (elementwise, so the bits do not depend on
+    the tile's shape) into its chunk's slab; then the slabs are added in
+    chunk order."""
+    slabs = [np.full((-(-rows // A._BWD_ROW_CHUNK), e, e), np.nan, np.float32)
+             for _, rows in products]
+    for i in order:
+        z, chunk, row0, col0 = plan[i]
+        x, dy = operands[z]
+        rs, cs = slice(row0, row0 + 32), slice(col0, col0 + width)
+        acc = np.zeros((len(range(e)[rs]), len(range(e)[cs])), np.float32)
+        for r in range(chunk * A._BWD_ROW_CHUNK, min(x.shape[0], (chunk + 1) * A._BWD_ROW_CHUNK)):
+            acc += x[r, rs, None] * dy[r, None, cs]
+        assert np.isnan(slabs[z][chunk, rs, cs]).all()          # no tile is written twice
+        slabs[z][chunk, rs, cs] = acc
+    out = []
+    for slab in slabs:
+        assert not np.isnan(slab).any()                         # every tile was written
+        total = slab[0].copy()
+        for part in slab[1:]:
+            total += part
+        out.append(total)
+    return out
+
+
+def test_row_chunk_partials_do_not_depend_on_the_tile_assignment():
+    """Weight gradients over a flat tile grid: whatever order the tiles run
+    in, and whichever tile width the grid takes, every (product, row chunk,
+    tile) is computed exactly once and the chunk-ordered float32 sums are
+    bit-equal."""
+    e = 72
+    rng = np.random.default_rng(5)
+    products = [("tn", 600), ("tn", 52), ("tn", 257)]
+    operands = [(rng.standard_normal((rows, e)).astype(np.float32),
+                 rng.standard_normal((rows, e)).astype(np.float32)) for _, rows in products]
+    width, plan = A.bwd_tile_plan(products, e)
+    assert width == 32 and len(plan) == (3 + 1 + 2) * 3 * 3
+    want = _run_plan(plan, width, products, operands, e, range(len(plan)))
+    for z, (x, dy) in enumerate(operands):
+        np.testing.assert_allclose(want[z], x.T.astype(np.float64) @ dy, rtol=1e-4, atol=1e-4)
+    for order in (range(len(plan) - 1, -1, -1), rng.permutation(len(plan))):
+        for a, b in zip(_run_plan(plan, width, products, operands, e, order), want):
+            assert np.array_equal(a, b)
+    # 64-wide tiles of the same products: other tiles, the same bits.
+    plan64 = [(z, chunk, row0, col0) for z, chunk, row0, col0 in plan if col0 % 64 == 0]
+    for a, b in zip(_run_plan(plan64, 64, products, operands, e, range(len(plan64))), want):
+        assert np.array_equal(a, b)
+
+
+def test_bwd_tile_plan_matches_the_training_shapes():
+    """The two GEMM launches of one B3 call at the training shapes: the
+    counts of tiles, the tile width (64, or 32 when 64-wide tiles would leave
+    SMs idle) and the order product after product, chunk after chunk."""
+    rq, rk = 4 * 576, 4 * 13
+    for first, second in (([("nt", rq), ("tn", rq)],
+                           [("nt", rq), ("nt", rk), ("nt", rk), ("tn", rq), ("tn", rk), ("tn", rk)]),
+                          ([("nt", rk), ("tn", rk)],
+                           [("nt", rk), ("nt", rq), ("nt", rq), ("tn", rk), ("tn", rq), ("tn", rq)])):
+        width, plan = A.bwd_tile_plan(first, 256)
+        tiles = {(z, c) for z, c, _, _ in plan}
+        if first[0][1] == rq:
+            assert width == 64 and len(plan) == 72 * 4 + 9 * 8 * 4
+            assert tiles == {(0, 0)} | {(1, c) for c in range(9)}
+        else:
+            assert width == 32 and len(plan) == 2 * 8 + 8 * 8      # 40 tiles of 64: under 132
+            assert tiles == {(0, 0), (1, 0)}
+        assert plan == sorted(plan)                                 # product, chunk, row, column
+        width, plan = A.bwd_tile_plan(second, 256)
+        big = sum(form == "nt" and rows == rq for form, rows in second)     # 1 or 2 of 3
+        assert width == 64 and len(plan) == (
+            (72 * big + 2 * (3 - big)) * 4 + (9 * big + (3 - big)) * 8 * 4)
+        assert len(set(plan)) == len(plan)
+
+
+def test_bwd_scratch_covers_every_part():
+    """The one scratch allocation of a B3 call at the training shapes, part by
+    part (the launcher checks the same sum)."""
+    n_q, n_k, ee = 4 * 576 * 256, 4 * 13 * 256, 256 * 256 + 256
+    assert A._bwd_scratch_floats(4, 576, 13, 256, 8, 0) == (
+        2 * n_q + 2 * n_k + (2 * 9 + 2 * 1) * ee + 2 * 36 * n_k)
+    n_q, n_k = n_k, n_q
+    assert A._bwd_scratch_floats(4, 13, 576, 256, 8, 9) == (
+        2 * n_q + 2 * n_k + (2 * 1 + 2 * 9) * ee + 9 * n_q + 4 * 8 * 13 * 9)
+    # One group of rows, one chunk of keys: no partials beside the chunk shares.
+    assert A._bwd_scratch_floats(1, 5, 40, 32, 8, 1) == (
+        2 * 5 * 32 + 2 * 40 * 32 + 4 * (32 * 32 + 32) + 8 * 5)
+    # More groups of query rows than the short pass has blocks.
+    assert A._bwd_scratch_floats(1, 2000, 8, 32, 8, 0) == (
+        2 * 2000 * 32 + 2 * 8 * 32 + (2 * 8 + 2) * (32 * 32 + 32) + 2 * 64 * 8 * 32)
