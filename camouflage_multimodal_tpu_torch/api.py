@@ -1,7 +1,9 @@
 """Public inference API: load the models, predict from images.
 
 Port of the inference part of ``camouflage_multimodal_tpu/api.py``
-(``load_rg_model``, ``load_multimodal_model``, ``MultimodalPredictor``).
+(``load_rg_model``, ``load_multimodal_model``, ``MultimodalPredictor``),
+and ``load_kg_model`` for the knowledge-graph GNN's checkpoint (the JAX
+package reads it inline in its ``extract-kg`` command).
 Checkpoints are this repo's ``.ckpt`` files; the reference's ``.pth`` route
 is not ported yet. Everything runs on ``device`` — ``"cuda"`` by default,
 which raises when no card is visible; ``"cpu"`` runs the plain versions.
@@ -17,13 +19,14 @@ import numpy as np
 import torch
 
 from camouflage_multimodal_tpu_torch.convert import (
-    fusion_state_dict, region_graph_state_dict)
+    fusion_state_dict, knowledge_graph_state_dict, region_graph_state_dict)
 from camouflage_multimodal_tpu_torch.core.checkpoint import load_checkpoint, scalar
 from camouflage_multimodal_tpu_torch.core.device import resolve_device
 from camouflage_multimodal_tpu_torch.data import (
     build_ordered_kg_tensor, load_image_rgb, load_kg_embeddings)
 from camouflage_multimodal_tpu_torch.models.fusion import (
     MultimodalCamouflageDetector, build_multimodal_model)
+from camouflage_multimodal_tpu_torch.models.knowledge_graph import KnowledgeGraphGNN
 from camouflage_multimodal_tpu_torch.models.region_graph import RegionGraphGNN
 from camouflage_multimodal_tpu_torch.pipeline import MultimodalPipeline, RegionGraphPipeline
 
@@ -48,6 +51,18 @@ def load_rg_model(checkpoint_path: str, device: str | torch.device = "cuda"
         num_classes=int(scalar(cfg.get("num_classes", 2))),
     )
     model.load_state_dict(region_graph_state_dict(ckpt["params"], ckpt["batch_stats"]))
+    return model.to(dev).eval()
+
+
+def load_kg_model(checkpoint_path: str, device: str | torch.device = "cuda"
+                  ) -> KnowledgeGraphGNN:
+    """``KnowledgeGraphGNN`` with a ``.ckpt``'s weights (the layout
+    ``KGTrainer`` writes in both packages), in eval mode on ``device``."""
+    _require_ckpt(checkpoint_path)
+    dev = resolve_device(device)
+    ckpt = load_checkpoint(checkpoint_path)
+    model = KnowledgeGraphGNN(embedding_dim=int(scalar(ckpt.get("embedding_dim", 128))))
+    model.load_state_dict(knowledge_graph_state_dict(ckpt["params"], ckpt["batch_stats"]))
     return model.to(dev).eval()
 
 

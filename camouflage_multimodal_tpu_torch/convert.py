@@ -1,5 +1,6 @@
-"""Weight carry-over: JAX parameter trees → the port's ``state_dict``s, and
-back for the fusion model.
+"""Weight carry-over between JAX parameter trees and the port's
+``state_dict``s, both ways, for the region-graph, knowledge-graph and
+fusion models.
 
 Inputs are nested dicts of arrays as a ``.ckpt`` (:mod:`core.checkpoint`)
 or flax ``init`` gives them. Layout rules:
@@ -60,6 +61,76 @@ def region_graph_state_dict(params: Mapping, batch_stats: Mapping
     return sd
 
 
+def _arr(sd: Mapping[str, torch.Tensor], key: str) -> np.ndarray:
+    return sd[key].detach().cpu().numpy().astype(np.float32)
+
+
+def _dense_back(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, np.ndarray]:
+    return {"kernel": np.ascontiguousarray(_arr(sd, f"{prefix}.weight").T),
+            "bias": _arr(sd, f"{prefix}.bias")}
+
+
+def _bn_back(sd: Mapping[str, torch.Tensor], prefix: str):
+    """(params, batch_stats) leaves of one ``MaskedBatchNorm``."""
+    return ({"scale": _arr(sd, f"{prefix}.weight"), "bias": _arr(sd, f"{prefix}.bias")},
+            {"mean": _arr(sd, f"{prefix}.running_mean"), "var": _arr(sd, f"{prefix}.running_var")})
+
+
+def region_graph_params_from_state_dict(sd: Mapping[str, torch.Tensor]):
+    """Port ``RegionGraphGNN`` ``state_dict`` → (params, batch_stats) of the
+    JAX ``RegionGraphGNN``, numpy leaves: the inverse of
+    :func:`region_graph_state_dict`."""
+    params: Dict[str, Any] = {
+        "gat_kernel": _arr(sd, "conv1.kernel"),
+        "gat_att_src": _arr(sd, "conv1.att_src"),
+        "gat_att_dst": _arr(sd, "conv1.att_dst"),
+        "gat_bias": _arr(sd, "conv1.bias"),
+    }
+    batch_stats: Dict[str, Any] = {}
+    for j, i in enumerate((2, 3, 4)):
+        params[f"gcn{i}_kernel"] = np.ascontiguousarray(_arr(sd, f"convs.{j}.lin.weight").T)
+        params[f"gcn{i}_bias"] = _arr(sd, f"convs.{j}.bias")
+    for j in range(4):
+        params[f"bn{j + 1}"], batch_stats[f"bn{j + 1}"] = _bn_back(sd, f"bns.{j}")
+    params["fc_shared"] = _dense_back(sd, "fc_shared")
+    for name in ("mask", "instance", "edge"):
+        params[f"fc_{name}_1"] = _dense_back(sd, f"heads.{name}.0")
+        params[f"fc_{name}_2"] = _dense_back(sd, f"heads.{name}.2")
+    return params, batch_stats
+
+
+_KG_DENSE = ("embedding", "classifier_1", "classifier_2")
+
+
+def knowledge_graph_state_dict(params: Mapping, batch_stats: Mapping
+                               ) -> Dict[str, torch.Tensor]:
+    """``KnowledgeGraphGNN`` params + batch_stats → port ``KnowledgeGraphGNN``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for j in range(3):
+        sd[f"convs.{j}.lin.weight"] = _t(params[f"gcn{j + 1}_kernel"]).T.contiguous()
+        sd[f"convs.{j}.bias"] = _t(params[f"gcn{j + 1}_bias"])
+        sd.update(_norm(f"bns.{j}", params[f"bn{j + 1}"]))
+        sd[f"bns.{j}.running_mean"] = _t(batch_stats[f"bn{j + 1}"]["mean"])
+        sd[f"bns.{j}.running_var"] = _t(batch_stats[f"bn{j + 1}"]["var"])
+    for name in _KG_DENSE:
+        sd.update(_dense(name, params[name]))
+    return sd
+
+
+def knowledge_graph_params_from_state_dict(sd: Mapping[str, torch.Tensor]):
+    """The inverse of :func:`knowledge_graph_state_dict`: (params,
+    batch_stats) of the JAX ``KnowledgeGraphGNN``, numpy leaves."""
+    params: Dict[str, Any] = {}
+    batch_stats: Dict[str, Any] = {}
+    for j in range(3):
+        params[f"gcn{j + 1}_kernel"] = np.ascontiguousarray(_arr(sd, f"convs.{j}.lin.weight").T)
+        params[f"gcn{j + 1}_bias"] = _arr(sd, f"convs.{j}.bias")
+        params[f"bn{j + 1}"], batch_stats[f"bn{j + 1}"] = _bn_back(sd, f"bns.{j}")
+    for name in _KG_DENSE:
+        params[name] = _dense_back(sd, name)
+    return params, batch_stats
+
+
 _FUSION_HEADS = ("mask_head", "instance_head", "edge_head", "score_head")
 
 
@@ -109,22 +180,18 @@ def fusion_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, A
     """The reverse map: a port ``state_dict`` → the nested dict of numpy
     arrays the JAX ``MultimodalCamouflageDetector`` takes as ``params``, so
     a checkpoint the port trains is one the JAX package loads."""
-    def arr(key):
-        return sd[key].detach().cpu().numpy().astype(np.float32)
-
     params: Dict[str, Any] = {}
     for kind, prefix, path in _fusion_layout():
         if kind == "raw":
             if prefix not in sd:
                 continue
-            leaf = arr(prefix)
+            leaf = _arr(sd, prefix)
         elif f"{prefix}.weight" not in sd:
             continue
         elif kind == "dense":
-            leaf = {"kernel": np.ascontiguousarray(arr(f"{prefix}.weight").T),
-                    "bias": arr(f"{prefix}.bias")}
+            leaf = _dense_back(sd, prefix)
         else:
-            leaf = {"scale": arr(f"{prefix}.weight"), "bias": arr(f"{prefix}.bias")}
+            leaf = {"scale": _arr(sd, f"{prefix}.weight"), "bias": _arr(sd, f"{prefix}.bias")}
         node = params
         for key in path[:-1]:
             node = node.setdefault(key, {})

@@ -99,37 +99,36 @@ def scalar(x: Any) -> Any:
 def save_resume_checkpoint(path: str, *, model_state: Dict[str, np.ndarray],
                            optimizer_state: Dict[str, Any], epoch: int,
                            numpy_rng: np.random.Generator,
-                           dataset_rng: np.random.Generator,
                            generator_state: np.ndarray,
                            history: Dict[str, Any], best_val: float,
-                           patience: int) -> None:
+                           **extra: Any) -> None:
     """Everything a trainer of the port needs to continue bit-exactly: the
     model's ``state_dict`` and the optimizer's moments and step count (as
-    numpy), the epoch counter, the states of the host numpy RNGs (the
-    trainer's sampler and the dataset's augmentation), the state of the
-    torch generator that drives on-device augmentation and dropout, the running
-    history, the best validation score and the early-stop counter."""
+    numpy), the epoch counter, the state of the trainer's host numpy RNG,
+    the state of the torch generator that drives dropout and on-device
+    augmentation, the running history and the best validation score, plus
+    the trainer's own ``extra`` entries (the fusion trainer's dataset RNG
+    state and early-stop counter, the KG trainer's learning rate and
+    plateau counter)."""
     save_checkpoint(path, {
         "model_state": model_state,
         "optimizer_state": optimizer_state,
         "epoch": int(epoch),
         "numpy_rng_state": numpy_rng.bit_generator.state,
-        "dataset_rng_state": dataset_rng.bit_generator.state,
         "generator_state": generator_state,
         "history": history,
         "best_val": float(best_val),
-        "patience": int(patience),
+        **extra,
     })
 
 
 def load_resume_checkpoint(path: str) -> Dict[str, Any]:
     """Inverse of :func:`save_resume_checkpoint`. The caller MUST restore
-    both numpy RNG states and the torch generator's state before the first
+    the numpy RNG states and the torch generator's state before the first
     epoch after the resume."""
     blob = load_checkpoint(path)
     missing = {"model_state", "optimizer_state", "epoch", "numpy_rng_state",
-               "dataset_rng_state", "generator_state", "history", "best_val",
-               "patience"} - set(blob)
+               "generator_state", "history", "best_val"} - set(blob)
     if missing:
         raise ValueError(f"{path}: not a resume checkpoint of the port "
                          f"(missing {sorted(missing)})")

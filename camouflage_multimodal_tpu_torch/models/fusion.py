@@ -27,35 +27,18 @@ when none was given) and is the identity in eval mode.
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
 from camouflage_multimodal_tpu_torch.core.checkpoint import scalar
+from camouflage_multimodal_tpu_torch.models.layers import Dropout, glorot_, lecun_
 from camouflage_multimodal_tpu_torch.ops.attention import (
     PARAM_NAMES, fused_mha, multihead_attention)
 from camouflage_multimodal_tpu_torch.ops.graph import masked_mean_pool
 
 LAYER_NORM_EPS = 1e-6
-
-
-class Dropout(nn.Module):
-    """Inverted dropout with an explicit generator (``nn.Dropout`` can only
-    draw from the global one, which a resumable trainer cannot snapshot
-    without touching every other consumer)."""
-
-    def __init__(self, p: float) -> None:
-        super().__init__()
-        self.p = float(p)
-        self.generator: Optional[torch.Generator] = None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.p == 0.0:
-            return x
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
-        return torch.where(keep, x / (1.0 - self.p), 0.0)
 
 
 class MultiheadAttention(nn.Module):
@@ -73,13 +56,12 @@ class MultiheadAttention(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Xavier-uniform weights, zero biases (flax ``glorot_uniform``)."""
-        with torch.no_grad():
-            for name in PARAM_NAMES:
-                p = getattr(self, name)
-                if name.startswith("w"):
-                    bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
-                    p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
-                else:
+        for name in PARAM_NAMES:
+            p = getattr(self, name)
+            if name.startswith("w"):
+                glorot_(p, p.shape[0], p.shape[1], generator)
+            else:
+                with torch.no_grad():
                     p.zero_()
 
     def forward(self, q, k, v, key_mask=None):
@@ -233,16 +215,13 @@ class MultimodalCamouflageDetector(nn.Module):
         """Re-draw every parameter from ``generator`` with the JAX modules'
         initialisers: LeCun-normal ``Linear`` weights (flax ``Dense``), zero
         biases, Xavier-uniform attention weights, unit LayerNorm."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, nn.Linear):
-                    std = 1.0 / math.sqrt(m.in_features)
-                    m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * std)
-                    m.bias.zero_()
-                elif isinstance(m, MultiheadAttention):
-                    m.reset_parameters(generator)
-                elif isinstance(m, nn.LayerNorm):
-                    m.reset_parameters()
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                lecun_(m, generator)
+            elif isinstance(m, MultiheadAttention):
+                m.reset_parameters(generator)
+            elif isinstance(m, nn.LayerNorm):
+                m.reset_parameters()
 
     def forward(self, rg, kg, rg_mask=None, kg_mask=None,
                 return_attention: bool = False) -> Dict[str, Any]:

@@ -1,27 +1,115 @@
-"""Shared modules for the padded-graph models."""
+"""Shared modules of the port's models: masked BatchNorm, dropout with an
+explicit generator and the dense GCN layer."""
 
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 from torch import nn
 
+from camouflage_multimodal_tpu_torch.ops.graph import gcn_layer, masked_batch_stats
+
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d over the valid nodes of a padded node batch, inference
-    only: normalizes with the running statistics (ε = 1e-5, torch's and the
-    JAX module's default) and zeroes padded nodes. Port of
-    ``camouflage_multimodal_tpu/models/layers.py:MaskedBatchNorm``; the
-    masked training statistics come with the training port."""
+    """BatchNorm1d over the valid nodes of a padded node batch. Port of
+    ``camouflage_multimodal_tpu/models/layers.py:MaskedBatchNorm``.
 
-    def __init__(self, features: int, eps: float = 1e-5) -> None:
+    In training mode it normalizes with the population statistics of every
+    valid node of the whole batch (:func:`ops.graph.masked_batch_stats`;
+    gradients flow through them, as under ``jax.grad``) and moves the
+    running estimates by ``momentum`` toward the batch mean and the unbiased
+    variance ``var·n/max(n−1, 1)``; in eval mode it uses the running
+    estimates. Padded nodes come out zero. ε = 1e-5, torch's and the JAX
+    module's default. The buffer names are the ones ``convert.py`` writes."""
+
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5) -> None:
         super().__init__()
+        self.momentum = momentum
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    def reset_parameters(self) -> None:
+        """Unit scale, zero bias, fresh running statistics."""
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        y = ((x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-             * self.weight + self.bias)
+        if self.training:
+            mean, var, n = masked_batch_stats(x, mask)
+            with torch.no_grad():
+                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+                self.running_mean.copy_((1 - self.momentum) * self.running_mean
+                                        + self.momentum * mean)
+                self.running_var.copy_((1 - self.momentum) * self.running_var
+                                       + self.momentum * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return torch.where(mask[..., None], y, 0.0)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout with an explicit generator (``nn.Dropout`` can only
+    draw from the global one, which a resumable trainer cannot snapshot
+    without touching every other consumer). The identity in eval mode and
+    at rate 0, where it draws nothing."""
+
+    def __init__(self, p: float) -> None:
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Every :class:`Dropout` of ``model`` draws from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+class GCNConv(nn.Module):
+    """Dense GCN layer on a pre-normalized adjacency; bias after propagation."""
+
+    def __init__(self, in_channels: int, out_channels: int) -> None:
+        super().__init__()
+        self.lin = nn.Linear(in_channels, out_channels, bias=False)
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Xavier-uniform kernel, zero bias (the JAX kernels' ``glorot_uniform``)."""
+        glorot_(self.lin.weight, self.lin.in_features, self.lin.out_features, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x, adj_norm):
+        return gcn_layer(x, adj_norm, self.lin.weight.T, self.bias)
+
+
+def glorot_(weight: torch.Tensor, fan_in: int, fan_out: int,
+            generator: Optional[torch.Generator]) -> None:
+    """Xavier-uniform draw in place (flax ``glorot_uniform``'s law)."""
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        weight.copy_((torch.rand(weight.shape, generator=generator) * 2 - 1) * bound)
+
+
+def lecun_(linear: nn.Linear, generator: Optional[torch.Generator]) -> None:
+    """LeCun-normal weight and zero bias (flax ``Dense``'s defaults)."""
+    with torch.no_grad():
+        std = 1.0 / math.sqrt(linear.in_features)
+        linear.weight.copy_(torch.randn(linear.weight.shape, generator=generator) * std)
+        linear.bias.zero_()

@@ -8,7 +8,8 @@ torch-geometric's sparse batches, with the same semantics:
 * GAT (concat=False): per head e_ij = LeakyReLU₀.₂(a_dst·Wx_i + a_src·Wx_j)
   over j ∈ N(i) ∪ {i}, softmax over the senders j (masked at −1e30), heads
   averaged, plus bias,
-* global mean pool over valid nodes.
+* global mean pool over valid nodes,
+* BatchNorm statistics over the valid nodes of the whole batch.
 """
 
 from __future__ import annotations
@@ -68,3 +69,16 @@ def masked_mean_pool(x: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
     s = torch.sum(x * m[..., None], dim=-2)
     n = torch.sum(m, dim=-1, keepdim=True)
     return s / torch.clamp(n, min=1.0)
+
+
+def masked_batch_stats(x: torch.Tensor, mask: torch.Tensor):
+    """(mean, population variance, count n) over every valid position of a
+    (..., C) tensor with mask (...,): the statistics torch's BatchNorm1d
+    sees on the reference's block-diagonal node batch. ``n`` is a 0-d
+    tensor, at least 1."""
+    m = mask.to(x.dtype)[..., None]
+    dims = tuple(range(x.ndim - 1))
+    n = torch.clamp(torch.sum(m), min=1.0)
+    mean = torch.sum(x * m, dim=dims) / n
+    var = torch.sum((x - mean) ** 2 * m, dim=dims) / n
+    return mean, var, n

@@ -1,6 +1,7 @@
 """Per-superpixel features as one batched segment reduction.
 
-Port of ``camouflage_multimodal_tpu/ops/regions.py`` (``region_features``).
+Port of ``camouflage_multimodal_tpu/ops/regions.py`` (``region_features``,
+``region_label_means``).
 Feature layout (index → meaning):
 
   0-2 mean RGB | 3-5 std RGB | 6 texture_mean | 7 texture_std
@@ -140,3 +141,19 @@ def region_features(image: torch.Tensor, segments: torch.Tensor,
     features = torch.where(node_mask[..., None], features, 0.0)
     features = torch.nan_to_num(features, nan=0.0)
     return {"features": features, "node_mask": node_mask, "count": count}
+
+
+def region_label_means(maps: torch.Tensor, segments: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """Per-segment means of (B, H, W, C) maps — or (B, H, W), one channel —
+    over (B, H, W) labels → (B, K, C), the pixel count clamped at 1. The
+    counterpart of ``ops/regions.py:region_label_means`` with a batch axis:
+    the GT labels threshold these means of the object / instance / edge
+    maps."""
+    if maps.ndim == 3:
+        maps = maps[..., None]
+    B, H, W, C = maps.shape
+    vals = torch.cat([maps.reshape(B, H * W, C).float(),
+                      torch.ones(B, H * W, 1, device=maps.device)], dim=-1)
+    m = segment_sum(vals, segments.reshape(B, H * W).long(), num_segments)
+    return m[..., :C] / torch.clamp(m[..., C:], min=1.0)

@@ -7,12 +7,14 @@ weights. Stages, in order: uint8 → float, SLIC (Lab, blur, all-K
 assignment through kernel B1, drift telemetry), connectivity, Canny,
 region features, 8-connected adjacency, RAG weights, ``RegionGraphGNN``,
 softmax + paint-back, then cross-attention fusion (kernel B2) and its four
-heads. Data-parallel meshes and spatial sharding are not ported yet.
+heads. :func:`build_region_graphs_with_labels` is the training variant of
+the graph build, with per-node GT labels. Data-parallel meshes and spatial
+sharding are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -23,7 +25,7 @@ from camouflage_multimodal_tpu_torch.ops.canny import canny
 from camouflage_multimodal_tpu_torch.ops.connectivity import enforce_label_connectivity
 from camouflage_multimodal_tpu_torch.ops.image import rgb_to_gray
 from camouflage_multimodal_tpu_torch.ops.rag import rag_edge_weights, region_adjacency
-from camouflage_multimodal_tpu_torch.ops.regions import region_features
+from camouflage_multimodal_tpu_torch.ops.regions import region_features, region_label_means
 from camouflage_multimodal_tpu_torch.ops.slic import grid_shape, slic
 
 
@@ -76,6 +78,34 @@ def build_region_graphs(images: torch.Tensor, n_segments: int = 500,
         adj = region_adjacency(seg, max_nodes)
         w = rag_edge_weights(reg["features"], adj)
     return RegionGraphBatch(seg, reg["features"], adj, w, reg["node_mask"], drift)
+
+
+def build_region_graphs_with_labels(
+        images: torch.Tensor, masks: torch.Tensor, instances: torch.Tensor,
+        edges_gt: torch.Tensor, n_segments: int = 500,
+        max_nodes: Optional[int] = None, slic_iters: int = 10,
+        window_radius: int = 3) -> Tuple[RegionGraphBatch, Dict[str, torch.Tensor]]:
+    """The training variant of :func:`build_region_graphs`: also the
+    per-node GT labels with the reference's thresholds on the per-segment
+    means of the (B, H, W) maps (uint8, or float in [0, 1]): mask > 0.5,
+    instance > 0.5, edge > 0.3. Labels: ``mask_labels`` and
+    ``instance_labels`` int64, ``edge_labels`` float32, each (B, K)."""
+    if max_nodes is None:
+        max_nodes = padded_nodes(n_segments, images.shape[1])
+    batch = build_region_graphs(images, n_segments, max_nodes, slic_iters, window_radius)
+
+    def to01(x):
+        return x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+
+    with record_function("cmt::labels"):
+        maps = torch.stack([to01(masks), to01(instances), to01(edges_gt)], dim=-1)
+        means = region_label_means(maps, batch.segments, max_nodes)
+        labels = {
+            "mask_labels": (means[..., 0] > 0.5).long(),
+            "instance_labels": (means[..., 1] > 0.5).long(),
+            "edge_labels": (means[..., 2] > 0.3).float(),
+        }
+    return batch, labels
 
 
 def paint_segments(segment_values: torch.Tensor, segments: torch.Tensor,

@@ -1,19 +1,21 @@
-"""Optimizer step of the port's trainers: AdamW with decoupled decay,
-global-norm gradient clipping and a learning rate applied per step.
+"""Optimizer step of the port's trainers: AdamW with decoupled decay or
+Adam with L2, global-norm gradient clipping and a learning rate applied per
+step.
 
 Counterpart of ``camouflage_multimodal_tpu/train/state.py``
-(``make_adamw_tx`` + ``apply_updates``): optax's ``clip_by_global_norm`` →
-``scale_by_adam`` → ``add_decayed_weights`` → ``−lr`` is what
-``torch.optim.AdamW`` (eps 1e-8, betas 0.9 / 0.999) computes, in another
-order of float32 operations. The clip is written out here because
-``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` where optax
-divides by ``norm``.
+(``make_adamw_tx``, ``make_adam_l2_tx`` + ``apply_updates``): optax's
+``clip_by_global_norm`` → ``scale_by_adam`` → ``add_decayed_weights`` →
+``−lr`` is what ``torch.optim.AdamW`` (eps 1e-8, betas 0.9 / 0.999)
+computes, in another order of float32 operations. The clip is written out
+here because ``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``
+where optax divides by ``norm``.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List
+from typing import Any, Dict, Iterable, List
 
+import numpy as np
 import torch
 
 
@@ -35,6 +37,40 @@ def make_adamw(params: Iterable[torch.nn.Parameter], weight_decay: float
     every step."""
     return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=weight_decay)
+
+
+def make_adam_l2(params: Iterable[torch.nn.Parameter], weight_decay: float
+                 ) -> torch.optim.Adam:
+    """The counterpart of ``make_adam_l2_tx`` (optax ``clip_by_global_norm``
+    → ``add_decayed_weights`` → ``scale_by_adam``: the L2 term joins the
+    clipped gradient before the moments). ``torch.optim.Adam`` with
+    ``weight_decay`` adds ``wd · p`` to the gradient it is given before its
+    moments, so :func:`apply_updates` (clip, then step) computes exactly
+    that; ``tests/test_torch_port_train_kg.py::test_adam_l2_matches_optax``
+    holds five steps against optax at 1e-6."""
+    return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay)
+
+
+def optimizer_arrays(model: torch.nn.Module, optimizer: torch.optim.Optimizer
+                     ) -> Dict[str, Any]:
+    """The optimizer's moments and step counts by parameter name, as numpy
+    (what a resume snapshot holds)."""
+    out: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        st = optimizer.state.get(p)
+        if st:
+            out[name] = {k: v.detach().cpu().numpy() for k, v in st.items()}
+    return out
+
+
+def load_optimizer_arrays(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                          arrays: Dict[str, Any]) -> None:
+    """Inverse of :func:`optimizer_arrays`."""
+    state = {i: {k: torch.from_numpy(np.array(v)) for k, v in arrays[name].items()}
+             for i, (name, _) in enumerate(model.named_parameters()) if name in arrays}
+    optimizer.load_state_dict(
+        {"state": state, "param_groups": optimizer.state_dict()["param_groups"]})
 
 
 def apply_updates(optimizer: torch.optim.Optimizer, lr: float,

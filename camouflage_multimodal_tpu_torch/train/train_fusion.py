@@ -42,7 +42,8 @@ from camouflage_multimodal_tpu_torch.models.fusion import (
 from camouflage_multimodal_tpu_torch.train.losses import (
     bce_terms, cross_entropy_terms, focal_terms)
 from camouflage_multimodal_tpu_torch.train.schedules import cosine_warm_restarts
-from camouflage_multimodal_tpu_torch.train.state import apply_updates, make_adamw
+from camouflage_multimodal_tpu_torch.train.state import (
+    apply_updates, load_optimizer_arrays, make_adamw, optimizer_arrays)
 
 Batch = Dict[str, torch.Tensor]
 _BATCH_KEYS = ("rg", "rg_mask", "kg", "y", "edge", "score")
@@ -338,28 +339,12 @@ class FusionTrainer:
     # Checkpoints
     # ------------------------------------------------------------------
 
-    def _optimizer_arrays(self) -> Dict[str, Any]:
-        """AdamW moments and step counts by parameter name, as numpy."""
-        out: Dict[str, Any] = {}
-        for name, p in self.model.named_parameters():
-            st = self.optimizer.state.get(p)
-            if st:
-                out[name] = {k: v.detach().cpu().numpy() for k, v in st.items()}
-        return out
-
-    def _load_optimizer_arrays(self, arrays: Dict[str, Any]) -> None:
-        state = {i: {k: torch.from_numpy(np.array(v)) for k, v in arrays[name].items()}
-                 for i, (name, _) in enumerate(self.model.named_parameters())
-                 if name in arrays}
-        self.optimizer.load_state_dict(
-            {"state": state, "param_groups": self.optimizer.state_dict()["param_groups"]})
-
     def _best_payload(self, epoch: int, metrics: Dict[str, float],
                       config: Optional[Dict[str, Any]]) -> Dict[str, Any]:
         """The best-checkpoint payload in the JAX package's layout, so its
         ``load_multimodal_model`` reads it."""
         sd = self.model.state_dict()
-        moments = self._optimizer_arrays()
+        moments = optimizer_arrays(self.model, self.optimizer)
         opt_state = {"step": max((int(m["step"]) for m in moments.values()), default=0)}
         for key, name in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
             opt_state[name] = fusion_params_from_state_dict(
@@ -422,7 +407,7 @@ class FusionTrainer:
             blob = load_resume_checkpoint(resume_from)
             self.model.load_state_dict(
                 {k: torch.from_numpy(np.array(v)) for k, v in blob["model_state"].items()})
-            self._load_optimizer_arrays(blob["optimizer_state"])
+            load_optimizer_arrays(self.model, self.optimizer, blob["optimizer_state"])
             rng.bit_generator.state = blob["numpy_rng_state"]
             dataset.rng.bit_generator.state = blob["dataset_rng_state"]
             generator.set_state(torch.from_numpy(np.array(blob["generator_state"])))
@@ -477,9 +462,10 @@ class FusionTrainer:
                     resume_path,
                     model_state={k: v.detach().cpu().numpy()
                                  for k, v in self.model.state_dict().items()},
-                    optimizer_state=self._optimizer_arrays(), epoch=epoch,
-                    numpy_rng=rng, dataset_rng=dataset.rng, generator_state=generator.get_state().cpu().numpy(),
-                    history=history, best_val=best_f1, patience=patience)
+                    optimizer_state=optimizer_arrays(self.model, self.optimizer), epoch=epoch,
+                    numpy_rng=rng, generator_state=generator.get_state().cpu().numpy(),
+                    history=history, best_val=best_f1,
+                    dataset_rng_state=dataset.rng.bit_generator.state, patience=patience)
 
         if checkpoint_dir:
             os.makedirs(checkpoint_dir, exist_ok=True)

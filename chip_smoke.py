@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py [--batches N] [--profile TRACE_JSON]
     python3 chip_smoke.py --b2-digest
+    python3 chip_smoke.py --rg-lr-probe
 
-Two paths of the port are driven: multimodal inference
-(``MultimodalPredictor``) and fusion training (``FusionTrainer``).
+Four paths of the port are driven: multimodal inference
+(``MultimodalPredictor``), fusion training (``FusionTrainer``),
+region-graph training (``RGTrainer``) and knowledge-graph training with its
+embedding factory (``KGTrainer``).
 
 Phases, each failing the run (nonzero exit, no result line) when it fails:
 
@@ -57,21 +60,63 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    relative, final parameters within 1e-3. A short run at ``dropout = 0.3``
    with on-device augmentation: train steps launch neither kernel, eval
    steps launch B2;
-7. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel
+7. region-graph training: ``RGTrainer.fit`` of the full-width model (GAT
+   15 → 4 × 128, 3 × GCN 128) from seed-0 weights at dropout 0 on 32 seeded
+   synthetic 256² images with blob masks (instance = mask, an edge ring),
+   500 segments into the 640-node bucket, 10 SLIC iterations, batch 4, 2
+   epochs (25 train samples in 7 steps with the tail window, 7 validation
+   samples in 2). First B1 against its plain version at the build's shape
+   (the first 16 images, K = 529, seed and fifth-iteration centers): labels
+   equal. Launch counters are zeroed just before the fit and read just
+   after, and once at the end of the graph build: B1 must have launched 20
+   times, all in the build (two build batches of 16), B2 and B3 never.
+   Every loss finite; the best checkpoint reloaded by ``api.load_rg_model``
+   and a ``RegionGraphPipeline`` on it answering one batch with finite
+   heatmaps; the same training again on the card and on the CPU, both from
+   the card-built graphs at lr 1e-4: epoch-0 train loss within 1e-3
+   relative, final parameters within 3·lr = 3e-4 (the biases ahead of a
+   BatchNorm, whose gradient is zero, and the running means within
+   2·lr·steps), and the distance of the two runs' trained parameters at
+   most 0.05 of how far the CPU's moved from the initial weights (a card
+   run that never moved reads 1); one build batch of 4 on both
+   devices: segment maps ≥ 99 % equal and node labels equal on every node
+   whose pixels agree;
+8. knowledge-graph training: seeded synthetic annotations (the 13
+   categories of the committed KG embeddings, 40 each) ingested into the
+   port's ``CamouflageKnowledgeStore``, ``create_dataset_from_store``, then
+   ``KGTrainer.fit`` of the full-width model (3 × GCN 32 → 128, embedding
+   128, MLP 128 → 64 → 1) at dropout 0, 64-node bucket, batch 32, 3
+   epochs: no kernel launched, every loss finite, the same CPU comparison;
+   ``batch_extract_embeddings`` → ``save_kg_embeddings`` →
+   ``load_kg_embeddings`` gives 13 finite (1, 128) vectors; the committed
+   ``kg_gnn_model.ckpt`` through ``api.load_kg_model`` embeds 8 subgraphs
+   on the card within 1e-5 of the CPU port;
+9. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel
    (B1 at each pixel-tile shape), the host time to enqueue one call, its
    plain version, ``torch.nn.functional.multi_head_attention_forward``
    (and its autograd backward) as B2's and B3's library yardstick (the port
    never calls it), the inference slice's ms per batch and images per
-   second, and the ms per train step and steps per second. ``--profile``
-   adds ``torch.profiler`` breakdowns of one inference batch, of three train
-   steps and of 20 calls of B1, B2 and B3 (device time of each sub-kernel;
-   B3 without and with a cotangent for the attention maps) and writes the
+   second, and the ms per train step and steps per second; ms per RG
+   graph-build batch of 16, ms per RG train step (batch 4, 640 nodes) and
+   per KG train step (batch 32, 64 nodes) with steps per second (the
+   seconds per epoch of each trainer are in phases 6-8). ``--profile``
+   adds ``torch.profiler`` breakdowns of one inference batch, of three
+   fusion, three RG and three KG train steps, of one RG graph-build batch
+   and of 20 calls of B1, B2 and B3 (device time of each sub-kernel; B3
+   without and with a cotangent for the attention maps) and writes the
    batch's Chrome trace to the path given.
 
 ``--b2-digest`` builds B2 alone, runs it on the five shapes of phase 3 and
 prints the SHA-256 of ``out`` and ``probs`` per shape, then stops: copied
 into a checkout of another commit and run there, the script shows whether
 two versions of the kernel give the same bits.
+
+``--rg-lr-probe`` runs phase 7's card-vs-CPU comparison alone on five data
+seeds, at the recipe's learning rate 1e-3 and at the comparison's 1e-4,
+and prints per seed and rate the epoch-0 losses, the distance of the two
+runs over how far the CPU's moved, and the entries furthest apart: their
+difference, how far each device moved them from the initial weights, and
+Adam's moments there on each device; then stops.
 
 Prints JSON lines per phase, then the card's name and power limit, the
 kernel table line, and as its last line
@@ -269,6 +314,13 @@ def phase_slic_assign(torch, slic_mod, images_u8):
         imgs = synthetic_images(7 + h, 2, max(h, w))[:, :h, :w]
         p, c, prev, st, ra = slic_state(torch, slic_mod, imgs, 2, n_segments)
         cases.append((name, h, w, p, center_cases(torch, c, st, h, w)["jitter"], prev, st, ra))
+    return {"pix": pix, "centers": c5, "prev": prev5, "step": step, "ratio": ratio,
+            "max_abs_err": check_slic_cases(torch, slic_mod, cases)}
+
+
+def check_slic_cases(torch, slic_mod, cases) -> int:
+    """Hold B1 to its plain version, label for label, on each case; fails
+    the run on any mismatch. Returns the largest label difference."""
     worst = 0
     for name, h, w, p, centers, prev, st, ra in cases:
         centers = centers.contiguous()
@@ -277,14 +329,13 @@ def phase_slic_assign(torch, slic_mod, images_u8):
         want = slic_mod.slic_assign_plain(p, centers, prev, ra, st)
         bad = int((got != want).sum())
         worst = max(worst, int((got - want).abs().max()))
-        emit({"phase": "slic_assign_check", "centers": name, "height": h, "width": w,
-              "step": st, "k": int(centers.shape[1]), "mismatched_labels": bad,
-              "pixels": int(got.numel()),
+        emit({"phase": "slic_assign_check", "centers": name, "batch": int(p.shape[0]),
+              "height": h, "width": w, "step": st, "k": int(centers.shape[1]),
+              "mismatched_labels": bad, "pixels": int(got.numel()),
               "candidate_list": list_lengths(slic_mod, centers, st, h, w)})
         if bad:
             fail(f"B1 disagrees with its plain version on {bad} labels ({name})")
-    return {"pix": pix, "centers": c5, "prev": prev5, "step": step, "ratio": ratio,
-            "max_abs_err": worst}
+    return worst
 
 
 def mha_inputs(torch, fusion_model, nq, nk, seed):
@@ -549,6 +600,436 @@ def phase_train_slice(torch, np, kernels, api, train_mod, out_dir):
     if not np.isfinite(drop_history["train_loss"] + drop_history["val_loss"]).all():
         fail("dropout training losses are not finite")
     return trainer, ds, launches
+
+
+# ---------------------------------------------------------------------------
+# Region-graph and knowledge-graph training
+# ---------------------------------------------------------------------------
+
+RG_IMAGES = 32             # two graph-build batches of 16
+RG_EPOCHS = 2
+RG_COMPARE_LR = 1e-4
+# Adam's first step is lr·sign(g): an entry whose early gradient is near
+# zero can step lr one way on the card and the other way on the CPU and
+# keep that 2·lr offset (``--rg-lr-probe`` reads 1.95e-4 on data seed 23).
+# Entries are held to 3·lr, where a run that never moved reads about
+# lr · 14 steps; the distance of the two runs over how far the CPU's moved
+# (RG_MOVED_BAR) tells such a run apart at any lr: it reads 1.
+RG_PARAM_BAR = 3 * RG_COMPARE_LR
+RG_MOVED_BAR = 0.05
+KG_PER_CATEGORY = 40
+KG_EPOCHS = 3
+KG_BATCH = 32
+KG_NODES = 64
+# Biases ahead of a BatchNorm have an exact gradient of zero in train mode:
+# float32 rounding leaves ~1e-8 there, which Adam turns into steps of about
+# lr in unrelated directions on each device. They and the running means
+# that follow them are held to 2·lr·steps; every other parameter to 1e-3
+# (RG_PARAM_BAR for RG).
+RG_GRADIENT_FREE = ("conv1.bias", "convs.0.bias", "convs.1.bias", "convs.2.bias")
+KG_GRADIENT_FREE = ("convs.0.bias", "convs.1.bias", "convs.2.bias")
+
+
+class BlobDataset:
+    """Seeded stand-in for ``CODDataset`` at full size: the smooth synthetic
+    images with one object disc painted in (its own colour and texture),
+    the disc as mask and instance map and a ring around it as edge map,
+    uint8 like decoded files."""
+
+    def __init__(self, np, n: int, size: int = SIZE, seed: int = 21) -> None:
+        rng = np.random.default_rng(seed)
+        images = synthetic_images(seed, n, size)
+        yy, xx = np.mgrid[0:size, 0:size]
+        self.items = []
+        for img in images:
+            cy, cx = rng.integers(size // 4, 3 * size // 4, 2)
+            r = rng.uniform(0.12, 0.25) * size
+            d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+            mask = d2 < r * r
+            colour = rng.integers(40, 216, 3)
+            stripes = (np.sin(xx / rng.uniform(3, 9)) > 0)[..., None] * 25
+            img = np.where(mask[..., None], np.clip(colour + stripes + rng.integers(-12, 13, img.shape),
+                                                    0, 255), img).astype(np.uint8)
+            ring = (d2 >= (r - 2) ** 2) & (d2 < (r + 2) ** 2)
+            self.items.append((img, (mask * 255).astype(np.uint8), (ring * 255).astype(np.uint8)))
+        self.np = np
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def load_batch(self, indices):
+        np = self.np
+        return {"image": np.stack([self.items[i][0] for i in indices]),
+                "mask": np.stack([self.items[i][1] for i in indices]),
+                "instance": np.stack([self.items[i][1] for i in indices]),
+                "edge": np.stack([self.items[i][2] for i in indices])}
+
+
+def synthetic_annotations(np, categories, per_category: int, seed: int = 31):
+    """(file name, annotation JSON) pairs in the schema of the reference's
+    annotation files; vocabulary colours and textures so that colour and
+    texture nodes appear, organisms repeated across files."""
+    colours = ("green", "brown", "sandy brown", "olive green", "gray", "blue-grey", "white",
+               "dark green", "beige", "orange", "black", "red", "yellow")
+    textures = ("rough", "smooth", "scaly", "gravel", "rocky", "vegetation", "coral",
+                "root-like", "bumpy", "fuzzy", "soft")
+    places = ("an underwater coral reef", "a sandy seabed", "a forest floor of dark leaves",
+              "desert rocks in shadow", "open grassland", "murky blue water", "a tree trunk")
+    patterns = ("Disruptive pattern", "spotted", "striped", "uniform", "mottled", "None")
+    levels = ("high", "medium", "low", "very high", "very low")
+    rng = np.random.default_rng(seed)
+    out = []
+    for cat in categories:
+        for i in range(per_category):
+            c, t, b = (rng.choice(colours, 2, replace=False), rng.choice(textures, 2, replace=False),
+                       rng.choice(colours, 2, replace=False))
+            out.append((f"{cat.lower()}_{i:03d}.json", {
+                "object_name": f"{cat}{int(rng.integers(0, 8))}", "object_category": cat,
+                "background_description": f"{rng.choice(places)} with {b[0]} and {b[1]} patches",
+                "explanation": f"Its {c[0]} and {c[1]} body has a {t[0]}, {t[1]} surface",
+                "camouflage_type": str(rng.choice(patterns)),
+                "camouflage_presence": "Camouflage" if rng.random() < 0.7 else "None",
+                "color_similarity": str(rng.choice(levels)),
+                "texture_similarity": str(rng.choice(levels)),
+                "contrast_difference": str(rng.choice(levels)),
+                "camouflage_score": float(np.round(rng.random(), 3)),
+                "confidence": float(np.round(0.5 + 0.5 * rng.random(), 3))}))
+    return out
+
+
+def trained_keys(model):
+    """Names of the RG parameters that have a gradient."""
+    return [k for k, _ in model.named_parameters() if k not in RG_GRADIENT_FREE]
+
+
+def param_diffs(torch, a_sd, b_sd, gradient_free, drift, bar=1e-3):
+    """(largest difference of the parameters held to ``bar``, of those held
+    to ``drift``, per-key differences, ok) of two state dicts."""
+    diffs = {k: float((v.cpu() - b_sd[k].cpu()).abs().max()) for k, v in a_sd.items()}
+    loose = {k for k in diffs if k in gradient_free or k.endswith("running_mean")}
+    tight_max = max(v for k, v in diffs.items() if k not in loose)
+    loose_max = max(v for k, v in diffs.items() if k in loose)
+    return tight_max, loose_max, diffs, tight_max <= bar and loose_max <= drift
+
+
+def rg_model(torch, model_mod):
+    """The full-width RG model from seed-0 weights at dropout 0."""
+    model = model_mod.RegionGraphGNN(dropout=0.0, head_dropout=0.0)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model
+
+
+def moved_ratio(torch, model_mod, a_sd, b_sd, keys) -> float:
+    """‖a − b‖ / ‖b − initial weights‖ over ``keys``: 0 for two equal runs,
+    1 for a run ``a`` that never moved."""
+    init = rg_model(torch, model_mod).state_dict()
+    num = sum(float(((a_sd[k].cpu() - b_sd[k].cpu()) ** 2).sum()) for k in keys)
+    den = sum(float(((b_sd[k].cpu() - init[k]) ** 2).sum()) for k in keys)
+    return (num / den) ** 0.5
+
+
+def fit_rg(torch, train_rg, model_mod, ds, device, out=None, cached=None, lr=1e-3):
+    """(trainer, history, build launches, build seconds, epoch seconds) of
+    one ``RGTrainer.fit`` of ``rg_model``. ``cached`` replaces the graph
+    build with given graphs."""
+    from camouflage_multimodal_tpu_torch.core import kernels
+
+    trainer = train_rg.RGTrainer(model=rg_model(torch, model_mod), learning_rate=lr)
+    build = trainer.build_cached_dataset
+    seen = {}
+
+    def timed_build(*a, **k):
+        t0 = time.perf_counter()
+        data = cached if cached is not None else build(*a, **k)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seen.update(launches=dict(kernels.LAUNCHES), seconds=time.perf_counter() - t0,
+                    end=time.perf_counter())
+        return data
+
+    trainer.build_cached_dataset = timed_build
+    stamps = []
+    _, history = trainer.fit(ds, epochs=RG_EPOCHS, batch_size=BATCH, seed=0,
+                             checkpoint_path=out, device=device,
+                             log_fn=lambda *_: stamps.append(time.perf_counter()))
+    epochs = [b - a for a, b in zip([seen["end"]] + stamps, stamps)]
+    return trainer, history, seen["launches"], seen["seconds"], epochs
+
+
+def agreeing_nodes(np, seg_a, seg_b, K):
+    """(B, K) True where node k covers the same pixels in both maps."""
+    B = seg_a.shape[0]
+    a, b = seg_a.reshape(B, -1), seg_b.reshape(B, -1)
+    out = np.zeros((B, K), bool)
+    for i in range(B):
+        for k in range(K):
+            out[i, k] = np.array_equal(a[i] == k, b[i] == k)
+    return out
+
+
+def phase_train_rg(torch, np, kernels, api, out_dir):
+    """Drive RG training; returns (trainer, dataset, its launches)."""
+    from camouflage_multimodal_tpu_torch.models import region_graph as model_mod
+    from camouflage_multimodal_tpu_torch.ops import slic as slic_mod
+    from camouflage_multimodal_tpu_torch.pipeline import RegionGraphPipeline
+    from camouflage_multimodal_tpu_torch.train import train_rg
+
+    ds = BlobDataset(np, RG_IMAGES)
+    n_train = int(0.8 * RG_IMAGES)
+    ckpt = os.path.join(out_dir, "rg_best.ckpt")
+
+    # B1 at the shape the build gives it: the first build batch of 16.
+    images = ds.load_batch(list(range(16)))["image"]
+    pix, c0, _, step, ratio = slic_state(torch, slic_mod, images, 0)
+    _, c5, prev5, _, _ = slic_state(torch, slic_mod, images, 5)
+    if pix.shape != (16, SIZE * SIZE, 5) or c0.shape[1] != 529 or step != 11:
+        fail(f"B1 shapes {tuple(pix.shape)}, K={c0.shape[1]}, step={step} are not the build's")
+    check_slic_cases(torch, slic_mod, [
+        ("rg_build_16_seed", SIZE, SIZE, pix, c0, torch.zeros_like(prev5), step, ratio),
+        ("rg_build_16_iter5", SIZE, SIZE, pix, c5, prev5, step, ratio)])
+    del pix, c0, c5, prev5
+
+    kernels.reset_launches()
+    trainer, history, build_launches, build_s, epoch_s = fit_rg(
+        torch, train_rg, model_mod, ds, "cuda", out=ckpt)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = {"slic_assign": SLIC_ITERS * -(-RG_IMAGES // 16), "fused_mha": 0, "fused_mha_bwd": 0}
+    steps = {"train": len(train_rg.epoch_order(np.random.default_rng(0), range(n_train), BATCH, False)),
+             "eval": len(train_rg.epoch_order(np.random.default_rng(0), range(RG_IMAGES - n_train),
+                                              BATCH, False))}
+    emit({"phase": "train_rg", "images": RG_IMAGES, "size": SIZE, "bucket": trainer.max_nodes,
+          "batch": BATCH, "epochs": RG_EPOCHS, "steps_per_epoch": steps,
+          "launches": launches, "launches_in_graph_build": build_launches,
+          "expected_launches": want, "graph_build_seconds": build_s, "epoch_seconds": epoch_s,
+          "nodes": [int(x) for x in trainer.data["node_mask"].sum(-1)], "history": history})
+    if launches != want or build_launches != want:
+        fail(f"RG training launched {launches} ({build_launches} in the graph build), "
+             f"expected {want}, all in the build")
+    if len(history["train_loss"]) != RG_EPOCHS or not np.isfinite(
+            history["train_loss"] + history["val_loss"]).all():
+        fail(f"RG training losses are not finite: {history}")
+    if trainer.max_nodes != 640 or trainer.data["features"].shape != (RG_IMAGES, 640, 15):
+        fail("RG training did not run at the 640-node bucket")
+
+    if not os.path.exists(ckpt):
+        fail("RG training wrote no best checkpoint")
+    loaded = api.load_rg_model(ckpt, device="cuda")
+    images = torch.from_numpy(ds.load_batch([0, 1, 2, 3])["image"]).cuda()
+    heat = RegionGraphPipeline(loaded)(images)["heatmap"]
+    emit({"phase": "train_rg_checkpoint", "heatmap_shape": list(heat.shape),
+          "heatmap_mean": float(heat.mean())})
+    if heat.shape != (4, SIZE, SIZE) or not bool(torch.isfinite(heat).all()):
+        fail("the reloaded RG checkpoint does not predict")
+
+    # The comparison trains both devices on the card's graphs at lr 1e-4,
+    # which keeps the bars (RG_PARAM_BAR) under the recipe's 1e-3.
+    gpu_trainer, gpu_history, _, _, _ = fit_rg(
+        torch, train_rg, model_mod, ds, "cuda", cached=trainer.data, lr=RG_COMPARE_LR)
+    cpu_data = {k: v.cpu() for k, v in trainer.data.items()}
+    cpu_trainer, cpu_history, _, _, cpu_epoch_s = fit_rg(
+        torch, train_rg, model_mod, ds, "cpu", cached=cpu_data, lr=RG_COMPARE_LR)
+    rel = abs(gpu_history["train_loss"][0] - cpu_history["train_loss"][0]) / abs(cpu_history["train_loss"][0])
+    drift = 2 * RG_COMPARE_LR * steps["train"] * RG_EPOCHS
+    g_sd, c_sd = gpu_trainer.model.state_dict(), cpu_trainer.model.state_dict()
+    tight, loose, diffs, ok = param_diffs(torch, g_sd, c_sd, RG_GRADIENT_FREE, drift, RG_PARAM_BAR)
+    moved = moved_ratio(torch, model_mod, g_sd, c_sd, trained_keys(cpu_trainer.model))
+    emit({"phase": "train_rg_vs_cpu", "learning_rate": RG_COMPARE_LR, "param_bar": RG_PARAM_BAR,
+          "distance_over_moved": moved, "distance_over_moved_bar": RG_MOVED_BAR,
+          "epoch0_train_loss_rel_diff": rel, "gpu_history": gpu_history,
+          "final_param_max_abs_diff": tight, "gradient_free_and_running_mean_max_abs_diff": loose,
+          "gradient_free_bound": drift, "per_key": diffs, "cpu_history": cpu_history,
+          "cpu_epoch_seconds": cpu_epoch_s})
+    if rel > 1e-3 or not ok or moved > RG_MOVED_BAR:
+        fail(f"GPU RG training disagrees with the CPU port: loss {rel}, parameters {tight} / "
+             f"{loose}, distance over moved {moved}")
+
+    raw = ds.load_batch([4, 5, 6, 7])
+    built = {dev: trainer.build_graphs(raw["image"], raw["mask"], raw["instance"], raw["edge"],
+                                       device=dev) for dev in ("cuda", "cpu")}
+    seg_g, seg_c = (built[d][0].segments.cpu().numpy() for d in ("cuda", "cpu"))
+    agree = agreeing_nodes(np, seg_g, seg_c, trainer.max_nodes)
+    valid = built["cpu"][0].node_mask.numpy()
+    label_diff = {k: int((built["cuda"][1][k].cpu().numpy() != built["cpu"][1][k].numpy())[agree].sum())
+                  for k in train_rg.LABEL_KEYS}
+    seg_eq = float((seg_g == seg_c).mean())
+    emit({"phase": "rg_build_vs_cpu", "segments_equal": seg_eq,
+          "agreeing_node_share": float(agree[valid].mean()),
+          "labels_differing_on_agreeing_nodes": label_diff})
+    if seg_eq < 0.99 or any(label_diff.values()):
+        fail(f"the RG graph build disagrees with the CPU port: segments {seg_eq}, labels {label_diff}")
+    return trainer, ds, launches
+
+
+def rg_lr_probe(torch, np, seeds=(21, 22, 23, 24, 25)):
+    """Phase 7's card-vs-CPU comparison on other data seeds, at the recipe's
+    learning rate and at the comparison's (``--rg-lr-probe``)."""
+    from camouflage_multimodal_tpu_torch.models import region_graph as model_mod
+    from camouflage_multimodal_tpu_torch.train import train_rg
+
+    init = rg_model(torch, model_mod).state_dict()
+    for seed in seeds:
+        ds = BlobDataset(np, RG_IMAGES, seed=seed)
+        data = None
+        for lr in (1e-3, RG_COMPARE_LR):
+            gpu, g_hist, _, _, _ = fit_rg(torch, train_rg, model_mod, ds, "cuda", cached=data, lr=lr)
+            data = gpu.data
+            cpu, c_hist, _, _, _ = fit_rg(torch, train_rg, model_mod, ds, "cpu",
+                                          cached={k: v.cpu() for k, v in data.items()}, lr=lr)
+            params = {d: dict(t.model.named_parameters()) for d, t in (("gpu", gpu), ("cpu", cpu))}
+            g_sd, c_sd = gpu.model.state_dict(), cpu.model.state_dict()
+            tight, _, diffs, _ = param_diffs(torch, g_sd, c_sd, RG_GRADIENT_FREE, 0.0)
+            loose = [k for k in diffs if k in RG_GRADIENT_FREE or k.endswith("running_mean")]
+            by_diff = sorted(diffs, key=diffs.get, reverse=True)
+            worst = []
+            for key in [k for k in by_diff if k not in loose][:3] + [k for k in by_diff if k in loose][:2]:
+                a, b = g_sd[key].cpu().flatten(), c_sd[key].cpu().flatten()
+                i = int((a - b).abs().argmax())
+                start = init[key].flatten()[i]
+                entry = {"key": key, "max_diff": diffs[key],
+                         "moved_max": float((b - init[key].flatten()).abs().max()),
+                         "moved_at_worst_gpu": float(a[i] - start),
+                         "moved_at_worst_cpu": float(b[i] - start)}
+                if key in params["gpu"]:
+                    st = {d: t.optimizer.state[params[d][key]] for d, t in (("gpu", gpu), ("cpu", cpu))}
+                    entry.update({f"m_{d}_at_worst": float(st[d]["exp_avg"].flatten()[i])
+                                  for d in st})
+                    entry.update({f"sqrt_v_{d}_at_worst": float(st[d]["exp_avg_sq"].flatten()[i].sqrt())
+                                  for d in st})
+                    entry["sqrt_v_median"] = float(st["cpu"]["exp_avg_sq"].sqrt().median())
+                worst.append(entry)
+            emit({"phase": "rg_lr_probe", "data_seed": seed, "learning_rate": lr,
+                  "epoch0_train_loss": [g_hist["train_loss"][0], c_hist["train_loss"][0]],
+                  "max_diff_held_to_bar": tight, "distance_over_moved": moved_ratio(
+                      torch, model_mod, g_sd, c_sd, trained_keys(cpu.model)),
+                  "worst": worst})
+
+
+def fit_kg(torch, train_kg, model_mod, subgraphs, device, out=None):
+    model = model_mod.KnowledgeGraphGNN(dropout=0.0)
+    model.head_drop.p = 0.0
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    trainer = train_kg.KGTrainer(model=model, max_nodes=KG_NODES)
+    stamps = [time.perf_counter()]
+    _, history = trainer.fit(subgraphs, epochs=KG_EPOCHS, batch_size=KG_BATCH, seed=0,
+                             checkpoint_path=out, device=device,
+                             log_fn=lambda *_: stamps.append(time.perf_counter()))
+    return trainer, history, [b - a for a, b in zip(stamps, stamps[1:])]
+
+
+def phase_train_kg(torch, np, kernels, api, out_dir):
+    """Drive KG training and the embedding factory; returns (trainer,
+    subgraphs)."""
+    from camouflage_multimodal_tpu_torch import data as data_mod
+    from camouflage_multimodal_tpu_torch.kg.featurize import pad_subgraphs
+    from camouflage_multimodal_tpu_torch.kg.store import CamouflageKnowledgeStore
+    from camouflage_multimodal_tpu_torch.models import knowledge_graph as model_mod
+    from camouflage_multimodal_tpu_torch.train import train_kg
+
+    with np.load(ARTIFACTS[2]) as z:
+        categories = list(z.files)
+    store = CamouflageKnowledgeStore()
+    for name, obj in synthetic_annotations(np, categories, KG_PER_CATEGORY):
+        store.ingest_annotation(obj, name)
+    subgraphs = train_kg.create_dataset_from_store(store)
+    nodes = [int(sg["x"].shape[0]) for sg in subgraphs]
+
+    kernels.reset_launches()
+    trainer, history, epoch_s = fit_kg(torch, train_kg, model_mod, subgraphs, "cuda",
+                                       out=os.path.join(out_dir, "kg_best.ckpt"))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    n_train = int(0.8 * len(subgraphs))
+    emit({"phase": "train_kg", "categories": len(store.categories()), "subgraphs": len(subgraphs),
+          "nodes_min_max": [min(nodes), max(nodes)], "bucket": KG_NODES, "batch": KG_BATCH,
+          "epochs": KG_EPOCHS, "train_steps_per_epoch": -(-n_train // KG_BATCH),
+          "launches": launches, "epoch_seconds": epoch_s, "history": history})
+    if any(launches.values()):
+        fail(f"KG training launched {launches}: no kernel is on its path")
+    if len(history["train_loss"]) != KG_EPOCHS or not np.isfinite(
+            history["train_loss"] + history["val_loss"]).all():
+        fail(f"KG training losses are not finite: {history}")
+    if max(nodes) > KG_NODES:
+        fail(f"a subgraph of {max(nodes)} nodes does not fit the {KG_NODES}-node bucket")
+
+    cpu_trainer, cpu_history, cpu_epoch_s = fit_kg(torch, train_kg, model_mod, subgraphs, "cpu")
+    rel = abs(history["train_loss"][0] - cpu_history["train_loss"][0]) / abs(cpu_history["train_loss"][0])
+    drift = 2 * trainer.base_lr * -(-n_train // KG_BATCH) * KG_EPOCHS
+    tight, loose, diffs, ok = param_diffs(torch, trainer.model.state_dict(),
+                                          cpu_trainer.model.state_dict(), KG_GRADIENT_FREE, drift)
+    emit({"phase": "train_kg_vs_cpu", "epoch0_train_loss_rel_diff": rel,
+          "final_param_max_abs_diff": tight, "gradient_free_and_running_mean_max_abs_diff": loose,
+          "gradient_free_bound": drift, "per_key": diffs, "cpu_history": cpu_history,
+          "cpu_epoch_seconds": cpu_epoch_s})
+    if rel > 1e-3 or not ok:
+        fail(f"GPU KG training disagrees with the CPU port: loss {rel}, parameters {tight} / {loose}")
+
+    embeddings, _ = trainer.batch_extract_embeddings(trainer.model, store)
+    path = os.path.join(out_dir, "kg_embeddings", "all_embeddings.npz")
+    data_mod.save_kg_embeddings(path, embeddings)
+    back = data_mod.load_kg_embeddings(path)
+    shapes_ok = all(v.shape == (1, 128) and np.isfinite(v).all() for v in back.values())
+    emit({"phase": "kg_embeddings", "categories": sorted(back), "all_finite_1x128": shapes_ok})
+    if len(back) != len(categories) or not shapes_ok:
+        fail(f"expected {len(categories)} finite (1, 128) KG embeddings, got {len(back)}")
+
+    x, adj, mask, _, _ = pad_subgraphs(subgraphs[:8], KG_NODES)
+    embs = {}
+    for dev in ("cuda", "cpu"):
+        model = api.load_kg_model("artifacts/kg_gnn_model.ckpt", device=dev)
+        with torch.no_grad():
+            embs[dev] = model(*(torch.from_numpy(a).to(dev) for a in (x, adj, mask)))["embedding"]
+    err = float((embs["cuda"].cpu() - embs["cpu"]).abs().max())
+    emit({"phase": "kg_checkpoint_vs_cpu", "subgraphs": 8, "max_abs_diff_embedding": err})
+    if err > 1e-5:
+        fail(f"the committed KG checkpoint's embeddings differ on the card by {err}")
+    return trainer, subgraphs
+
+
+def phase_times_graph_training(torch, np, rg_trainer, rg_ds, kg_trainer, kg_subgraphs, profile):
+    """ms per RG graph-build batch of 16, per RG and per KG train step."""
+    raw = rg_ds.load_batch(list(range(16)))
+
+    def build():
+        rg_trainer.build_graphs(raw["image"], raw["mask"], raw["instance"], raw["edge"],
+                                device="cuda")
+
+    build()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        build()
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) / 3 * 1e3
+
+    def time_steps(trainer, batches):
+        def run(some):
+            for batch in some:
+                trainer.train_step(batch, 1e-5)
+        run(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(batches)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / len(batches) * 1e3, run
+
+    g = torch.Generator().manual_seed(0)
+    rg_batches = [rg_trainer.gather(rg_trainer.data, torch.randperm(RG_IMAGES, generator=g)[:BATCH].cuda())
+                  for _ in range(12)]
+    rg_ms, rg_run = time_steps(rg_trainer, rg_batches)
+    kg_data = kg_trainer.device_dataset(kg_subgraphs, KG_NODES, torch.device("cuda"))
+    kg_batches = [{k: kg_data[k].index_select(0, torch.randperm(len(kg_subgraphs), generator=g)[:KG_BATCH].cuda())
+                   for k in ("x", "adj", "mask", "y")} for _ in range(12)]
+    kg_ms, kg_run = time_steps(kg_trainer, kg_batches)
+    emit({"phase": "graph_training_time", "rg_graph_build_ms_per_batch_of_16": build_ms,
+          "rg_ms_per_train_step": rg_ms, "rg_steps_per_second": 1e3 / rg_ms,
+          "rg_batch": BATCH, "rg_nodes": rg_trainer.max_nodes,
+          "kg_ms_per_train_step": kg_ms, "kg_steps_per_second": 1e3 / kg_ms,
+          "kg_batch": KG_BATCH, "kg_nodes": KG_NODES, "steps_timed": 12})
+    if profile:
+        phase_profile(torch, "three RG train steps", lambda: rg_run(rg_batches[:3]))
+        phase_profile(torch, "three KG train steps", lambda: kg_run(kg_batches[:3]))
+        phase_profile(torch, "one RG graph-build batch of 16", build)
 
 
 def phase_slice(torch, np, kernels, api, n_batches):
@@ -914,6 +1395,8 @@ def main() -> None:
                     help="also profile one batch and write its Chrome trace here")
     ap.add_argument("--b2-digest", action="store_true",
                     help="print SHA-256 digests of B2's outputs on its check shapes and stop")
+    ap.add_argument("--rg-lr-probe", action="store_true",
+                    help="run the RG card-vs-CPU comparison on five data seeds and stop")
     args = ap.parse_args()
     trace = os.path.abspath(args.profile) if args.profile else None
 
@@ -939,6 +1422,10 @@ def main() -> None:
             fail(f"missing artifact {path}")
     os.chdir(REPO)
 
+    if args.rg_lr_probe:
+        phase_build(kernels)
+        rg_lr_probe(torch, np)
+        return
     if args.b2_digest:
         fusion_model, _ = api.load_multimodal_model(ARTIFACTS[0], device="cuda")
         b2_digest(torch, attention_mod, fusion_model)
@@ -952,10 +1439,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as out_dir:
         trainer, train_ds, train_launches = phase_train_slice(
             torch, np, kernels, api, train_mod, out_dir)
+        rg_trainer, rg_ds, rg_launches = phase_train_rg(torch, np, kernels, api, out_dir)
+        kg_trainer, kg_subgraphs = phase_train_kg(torch, np, kernels, api, out_dir)
     (b1_ms, b1_host, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
         torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches, trace)
     b3, b3_bound = phase_times_train(torch, kernels, attention_mod, b3_cases, trainer,
                                      train_ds, bool(trace))
+    phase_times_graph_training(torch, np, rg_trainer, rg_ds, kg_trainer, kg_subgraphs,
+                               bool(trace))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -967,7 +1458,10 @@ def main() -> None:
          "source": "camouflage_multimodal_tpu_torch/csrc/slic_assign.cu",
          "replaces": "camouflage_multimodal_tpu/ops/pallas_slic.py:33",
          "per": "1 launch: one SLIC assignment of 4 images of 256^2 against K=529",
-         "launches": launches["slic_assign"], "max_abs_err": b1["max_abs_err"],
+         "launches": launches["slic_assign"],
+         "launches_rg_training": rg_launches["slic_assign"],
+         "per_rg_training": "1 launch: one SLIC assignment of 16 images of 256^2 against K=529",
+         "max_abs_err": b1["max_abs_err"],
          "ms": b1_ms, "host_ms": b1_host, "plain_ms": b1_plain, "bound_ms": b1_bound[0],
          "bound_by": b1_bound[1], "library_ms": None},
         {"name": "fused_mha", "route": "cuda",

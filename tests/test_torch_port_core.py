@@ -134,8 +134,10 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "camouflage_multimodal_tpu"))
-assert len(names) >= 21, names
-for needed in ("train.train_fusion", "train.losses", "train.schedules", "train.state"):
+assert len(names) >= 28, names
+for needed in ("train.train_fusion", "train.losses", "train.schedules", "train.state",
+               "train.train_rg", "train.train_kg", "models.knowledge_graph", "kg.store",
+               "kg.featurize", "kg.normalize"):
     assert pkg.__name__ + "." + needed in names, needed
 print("BAD", bad)
 """

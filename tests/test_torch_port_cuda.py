@@ -53,6 +53,21 @@ def test_slic_assign_kernel_equals_plain(dev, size, n_segments, iters):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("iters", [0, 5])
+def test_slic_assign_build_batch_equals_plain(dev, iters):
+    """The RG graph build's shape, 16 images of 256² against K = 529 with the
+    image width given: labels bit-equal."""
+    pix, centers, step, ratio = S.slic_features(_images(dev, 16, 256, 256), 500)
+    assert pix.shape == (16, 256 * 256, 5) and centers.shape[1] == 529
+    labels = torch.zeros(pix.shape[:2], dtype=torch.int32, device=dev)
+    for _ in range(iters):
+        labels = S.slic_assign_plain(pix, centers, labels, ratio, step)
+        centers = S.update_centers(pix, labels, centers)
+    got = S.slic_assign(pix, centers, labels, ratio, step, width=256)
+    torch.cuda.synchronize()
+    assert torch.equal(got, S.slic_assign_plain(pix, centers, labels, ratio, step))
+
+
 def _center_case(case, centers, step, height, width, dev):
     """Center states that stress the per-tile candidate lists of B1."""
     c = centers.clone()
@@ -322,6 +337,137 @@ def test_train_step_on_card_matches_cpu(dev):
     assert results["cuda"][2] == {"slic_assign": 0, "fused_mha": 4, "fused_mha_bwd": 4}
     assert results["cpu"][2] == {"slic_assign": 0, "fused_mha": 0, "fused_mha_bwd": 0}
     assert abs(results["cuda"][0] - results["cpu"][0]) <= 1e-4 * abs(results["cpu"][0])
+    for key, want in results["cpu"][1].items():
+        torch.testing.assert_close(results["cuda"][1][key], want, rtol=1e-3, atol=1e-5,
+                                   msg=lambda m: f"{key}: {m}")
+
+
+def _blob_batch(n, size, seed):
+    """uint8 images with one disc each, its mask and a ring as edge map."""
+    g = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    images, masks, edges = [], [], []
+    for _ in range(n):
+        img = g.integers(0, 256, (size, size, 3)).astype(np.float64)
+        img = (img + np.roll(img, 1, 0) + np.roll(img, 1, 1)) / 3
+        cy, cx = g.integers(size // 4, 3 * size // 4, 2)
+        d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+        mask = d2 < (size / 5) ** 2
+        img[mask] = 0.4 * img[mask] + g.integers(60, 200, 3)
+        images.append(np.clip(img, 0, 255).astype(np.uint8))
+        masks.append((mask * 255).astype(np.uint8))
+        edges.append((((d2 >= (size / 5 - 2) ** 2) & (d2 < (size / 5 + 2) ** 2)) * 255).astype(np.uint8))
+    return {"image": np.stack(images), "mask": np.stack(masks), "instance": np.stack(masks),
+            "edge": np.stack(edges)}
+
+
+class _BlobDataset:
+    def __init__(self, n, size, seed):
+        self.raw = _blob_batch(n, size, seed)
+
+    def __len__(self):
+        return len(self.raw["image"])
+
+    def load_batch(self, idx):
+        return {k: v[list(idx)] for k, v in self.raw.items()}
+
+
+def test_rg_graph_build_launches_b1_and_matches_cpu(dev):
+    """The cached-dataset build launches B1 once per SLIC iteration and
+    build batch (20 images in batches of 16: two), a train step never; the
+    card's segment maps are ≥ 99 % the CPU's and the node labels equal
+    wherever a node covers the same pixels."""
+    from camouflage_multimodal_tpu_torch.train.train_rg import LABEL_KEYS, RGTrainer
+
+    ds = _BlobDataset(20, 96, 0)
+    trainer = RGTrainer(n_segments=60, max_nodes=128, slic_iters=3)
+    kernels.reset_launches()
+    data = trainer.build_cached_dataset(ds, batch_size=16, device="cuda")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"slic_assign": 6, "fused_mha": 0, "fused_mha_bwd": 0}
+    trainer.model.to(dev)
+    trainer.optimizer = torch.optim.AdamW(trainer.model.parameters())
+    trainer.train_step(trainer.gather(data, torch.arange(4, device=dev)), 1e-3)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["slic_assign"] == 6
+    raw = ds.load_batch(range(4))
+    gpu = trainer.build_graphs(raw["image"], raw["mask"], raw["instance"], raw["edge"], "cuda")
+    cpu = trainer.build_graphs(raw["image"], raw["mask"], raw["instance"], raw["edge"], "cpu")
+    seg_g, seg_c = gpu[0].segments.cpu().numpy(), cpu[0].segments.numpy()
+    assert (seg_g == seg_c).mean() >= 0.99
+    flat_g, flat_c = seg_g.reshape(4, -1), seg_c.reshape(4, -1)
+    agree = np.array([[np.array_equal(flat_g[b] == k, flat_c[b] == k) for k in range(128)]
+                      for b in range(4)])
+    for key in LABEL_KEYS:
+        np.testing.assert_array_equal(gpu[1][key].cpu().numpy()[agree], cpu[1][key].numpy()[agree])
+
+
+def _rg_graphs(K=640, counts=(640, 560, 431, 17), seed=5):
+    g = np.random.default_rng(seed)
+    B = len(counts)
+    x = g.random((B, K, 15)).astype(np.float32)
+    mask = np.arange(K)[None] < np.array(counts)[:, None]
+    adj = g.random((B, K, K)) < 0.01
+    adj = (adj | adj.transpose(0, 2, 1)) & mask[:, None, :] & mask[:, :, None]
+    w = np.where(adj, g.random((B, K, K)) * 0.9 + 0.1, 0.0).astype(np.float32)
+    w = np.maximum(w, w.transpose(0, 2, 1))
+    labels = {"mask_labels": g.integers(0, 2, (B, K)), "instance_labels": g.integers(0, 2, (B, K)),
+              "edge_labels": g.integers(0, 2, (B, K)).astype(np.float32)}
+    return {"features": x, "edge_weights": w, "node_mask": mask, **labels}
+
+
+def test_rg_train_step_on_card_matches_cpu(dev):
+    """The full-width RG model (640 nodes, 4 GAT heads of 128, BatchNorm in
+    train mode) forward and backward on the card against the CPU: loss
+    within 1e-5 relative, gradients within rtol 1e-3 / atol 1e-5, and the
+    input gradient finite and zero at padded nodes (their GAT rows are
+    all masked)."""
+    from camouflage_multimodal_tpu_torch.models.region_graph import RegionGraphGNN
+    from camouflage_multimodal_tpu_torch.train.train_rg import rg_loss
+
+    batch = _rg_graphs()
+    results = {}
+    for device in ("cpu", "cuda"):
+        model = RegionGraphGNN(dropout=0.0, head_dropout=0.0)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.to(device).train()
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        x = b["features"].clone().requires_grad_()
+        w = b["edge_weights"]
+        loss, _ = rg_loss(model(x, w > 0, w, b["node_mask"]), b, b["node_mask"])
+        loss.backward()
+        assert torch.isfinite(x.grad).all()
+        assert float(x.grad[~b["node_mask"]].abs().max()) == 0.0
+        results[device] = (float(loss), {k: p.grad.cpu() for k, p in model.named_parameters()})
+    assert abs(results["cuda"][0] - results["cpu"][0]) <= 1e-5 * abs(results["cpu"][0])
+    for key, want in results["cpu"][1].items():
+        torch.testing.assert_close(results["cuda"][1][key], want, rtol=1e-3, atol=1e-5,
+                                   msg=lambda m: f"{key}: {m}")
+
+
+def test_kg_train_step_on_card_matches_cpu(dev):
+    """The full-width KG model (64-node bucket, batch 32) forward and
+    backward on the card against the CPU, as for the RG model."""
+    from camouflage_multimodal_tpu_torch.models.knowledge_graph import KnowledgeGraphGNN
+
+    g = np.random.default_rng(6)
+    counts = g.integers(6, 40, 32)
+    mask = np.arange(64)[None] < counts[:, None]
+    x = np.where(mask[..., None], g.random((32, 64, 32)), 0).astype(np.float32)
+    adj = g.random((32, 64, 64)) < 0.1
+    adj = (adj | adj.transpose(0, 2, 1)) & mask[:, None, :] & mask[:, :, None]
+    y = g.random(32).astype(np.float32)
+    results = {}
+    for device in ("cpu", "cuda"):
+        model = KnowledgeGraphGNN(dropout=0.0)
+        model.head_drop.p = 0.0
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.to(device).train()
+        out = model(*(torch.from_numpy(a).to(device) for a in (x, adj, mask)))
+        loss = torch.mean((out["score"][:, 0] - torch.from_numpy(y).to(device)) ** 2)
+        loss.backward()
+        results[device] = (float(loss), {k: p.grad.cpu() for k, p in model.named_parameters()})
+    assert abs(results["cuda"][0] - results["cpu"][0]) <= 1e-5 * abs(results["cpu"][0])
     for key, want in results["cpu"][1].items():
         torch.testing.assert_close(results["cuda"][1][key], want, rtol=1e-3, atol=1e-5,
                                    msg=lambda m: f"{key}: {m}")
