@@ -1,82 +1,119 @@
-"""Public inference API: load the models, predict from images.
+"""Public API: load the models, predict from images, score a directory.
 
-Port of the inference part of ``camouflage_multimodal_tpu/api.py``
-(``load_rg_model``, ``load_multimodal_model``, ``MultimodalPredictor``),
-and ``load_kg_model`` for the knowledge-graph GNN's checkpoint (the JAX
-package reads it inline in its ``extract-kg`` command).
-Checkpoints are this repo's ``.ckpt`` files; the reference's ``.pth`` route
-is not ported yet. Everything runs on ``device`` — ``"cuda"`` by default,
-which raises when no card is visible; ``"cpu"`` runs the plain versions.
-Results come back as numpy arrays, as from the JAX API.
+Port of ``camouflage_multimodal_tpu/api.py``: ``load_rg_model``,
+``load_multimodal_model``, ``MultimodalPredictor``, ``classification_bands``,
+``detect_camouflage``, ``test_image_directory`` and ``evaluate_directory``,
+plus ``load_kg_model`` for the knowledge-graph GNN (the JAX package reads
+that checkpoint inline in its ``extract-kg`` command). Checkpoints are this
+repo's ``.ckpt`` files or the reference's ``.pth`` / ``.pt``
+(:mod:`core.torch_compat`). Everything runs on ``device`` — ``"cuda"`` by
+default, which raises when no card is visible; ``"cpu"`` runs the plain
+versions. Results come back as numpy arrays, as from the JAX API. The
+figures (``save_figures=True``, ``visualize_prediction``) wait for the
+port of ``viz.py`` and raise ``NotImplementedError`` until then.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from camouflage_multimodal_tpu_torch.convert import (
     fusion_state_dict, knowledge_graph_state_dict, region_graph_state_dict)
+from camouflage_multimodal_tpu_torch.core import stages
 from camouflage_multimodal_tpu_torch.core.checkpoint import load_checkpoint, scalar
 from camouflage_multimodal_tpu_torch.core.device import resolve_device
+from camouflage_multimodal_tpu_torch.core.torch_compat import load_torch_checkpoint
 from camouflage_multimodal_tpu_torch.data import (
-    build_ordered_kg_tensor, load_image_rgb, load_kg_embeddings)
+    build_ordered_kg_tensor, load_image_rgb, load_kg_embeddings, load_mask)
+from camouflage_multimodal_tpu_torch.eval.curves import batch_curve_metrics
+from camouflage_multimodal_tpu_torch.eval.metrics import batch_evaluate, evaluate_segmentation
+from camouflage_multimodal_tpu_torch.extract import load_image_u8, pipeline_device
 from camouflage_multimodal_tpu_torch.models.fusion import (
     MultimodalCamouflageDetector, build_multimodal_model)
 from camouflage_multimodal_tpu_torch.models.knowledge_graph import KnowledgeGraphGNN
 from camouflage_multimodal_tpu_torch.models.region_graph import RegionGraphGNN
 from camouflage_multimodal_tpu_torch.pipeline import MultimodalPipeline, RegionGraphPipeline
 
+IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp"}
+_FIGURES = ("figures are not ported yet: they wait for viz.py "
+            "(ROADMAP Queue A, the core/config, cli, viz item)")
 
-def _require_ckpt(path: str) -> None:
-    if os.path.splitext(path)[1].lower() in (".pth", ".pt"):
-        raise NotImplementedError(
-            f"{path}: reference .pth checkpoints are not supported by the port "
-            "yet; convert them to .ckpt with the JAX package first")
+
+def classification_bands(mean_score: float) -> Tuple[str, str]:
+    """The reference's 4-level classification of a heatmap's mean score."""
+    if mean_score > 0.35:
+        return "HIGHLY CAMOUFLAGED", "red"
+    if mean_score > 0.20:
+        return "MODERATELY CAMOUFLAGED", "orange"
+    if mean_score > 0.10:
+        return "SLIGHTLY CAMOUFLAGED", "yellow"
+    return "NOT CAMOUFLAGED", "green"
+
+
+def _is_torch_checkpoint(path: str) -> bool:
+    return os.path.splitext(path)[1].lower() in (".pth", ".pt")
+
+
+def _variables(path: str, kind: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(JAX-layout variables, the file's other entries) of a ``.ckpt`` or a
+    reference ``.pth`` / ``.pt``."""
+    if _is_torch_checkpoint(path):
+        return load_torch_checkpoint(path, kind=kind)
+    ckpt = load_checkpoint(path)
+    variables = {"params": ckpt["params"]}
+    if "batch_stats" in ckpt:
+        variables["batch_stats"] = ckpt["batch_stats"]
+    return variables, ckpt
 
 
 def load_rg_model(checkpoint_path: str, device: str | torch.device = "cuda"
                   ) -> RegionGraphGNN:
-    """``RegionGraphGNN`` with a ``.ckpt``'s weights, in eval mode on ``device``."""
-    _require_ckpt(checkpoint_path)
+    """``RegionGraphGNN`` with the weights of a ``.ckpt`` or of the
+    reference's bare-state-dict ``.pth``, in eval mode on ``device``. A
+    ``.pth`` carries no config: its widths are read off the weights."""
     dev = resolve_device(device)
-    ckpt = load_checkpoint(checkpoint_path)
-    cfg = ckpt.get("model_config", {})
+    variables, meta = _variables(checkpoint_path, "region_graph")
+    params = variables["params"]
+    gat = np.shape(params["gat_kernel"])          # (in, heads, hidden)
+    cfg = meta.get("model_config", {})
     model = RegionGraphGNN(
-        in_channels=int(scalar(cfg.get("in_channels", 15))),
-        hidden_channels=int(scalar(cfg.get("hidden_channels", 128))),
-        num_classes=int(scalar(cfg.get("num_classes", 2))),
+        in_channels=int(scalar(cfg.get("in_channels", gat[0]))),
+        hidden_channels=int(scalar(cfg.get("hidden_channels", gat[2]))),
+        num_classes=int(scalar(cfg.get("num_classes", np.shape(params["fc_mask_2"]["bias"])[0]))),
     )
-    model.load_state_dict(region_graph_state_dict(ckpt["params"], ckpt["batch_stats"]))
+    model.load_state_dict(region_graph_state_dict(params, variables["batch_stats"]))
     return model.to(dev).eval()
 
 
 def load_kg_model(checkpoint_path: str, device: str | torch.device = "cuda"
                   ) -> KnowledgeGraphGNN:
-    """``KnowledgeGraphGNN`` with a ``.ckpt``'s weights (the layout
-    ``KGTrainer`` writes in both packages), in eval mode on ``device``."""
-    _require_ckpt(checkpoint_path)
+    """``KnowledgeGraphGNN`` with the weights of a ``.ckpt`` (the layout
+    ``KGTrainer`` writes in both packages) or of the reference's ``.pth``,
+    in eval mode on ``device``."""
     dev = resolve_device(device)
-    ckpt = load_checkpoint(checkpoint_path)
-    model = KnowledgeGraphGNN(embedding_dim=int(scalar(ckpt.get("embedding_dim", 128))))
-    model.load_state_dict(knowledge_graph_state_dict(ckpt["params"], ckpt["batch_stats"]))
+    variables, meta = _variables(checkpoint_path, "knowledge_graph")
+    model = KnowledgeGraphGNN(embedding_dim=int(scalar(meta.get("embedding_dim", 128))))
+    model.load_state_dict(knowledge_graph_state_dict(variables["params"],
+                                                     variables["batch_stats"]))
     return model.to(dev).eval()
 
 
 def load_multimodal_model(checkpoint_path: str, device: str | torch.device = "cuda"
                           ) -> Tuple[MultimodalCamouflageDetector, Dict[str, Any]]:
     """(fusion model in eval mode on ``device``, training config) from a
-    ``.ckpt`` whose config travels inside. Whatever ``use_pallas`` the model
-    was trained with, inference runs its attention through the fused kernel."""
-    _require_ckpt(checkpoint_path)
+    ``.ckpt`` or a reference ``.pth`` of either generation, the model built
+    from the config inside. Whatever ``use_pallas`` the model was trained
+    with, inference runs its attention through the fused kernel."""
     dev = resolve_device(device)
-    ckpt = load_checkpoint(checkpoint_path)
-    config = ckpt.get("config", {})
+    variables, meta = _variables(checkpoint_path, "fusion")
+    config = meta.get("config") or {}
     model = build_multimodal_model({**config.get("model", config), "use_pallas": True})
-    model.load_state_dict(fusion_state_dict(ckpt["params"]))
+    model.load_state_dict(fusion_state_dict(variables["params"]))
     return model.to(dev).eval(), config
 
 
@@ -103,22 +140,25 @@ class MultimodalPredictor:
         self.kg_tensor = torch.from_numpy(kg).to(self.device)
 
     def predict_batch(self, images: np.ndarray) -> Dict[str, Any]:
-        """(B, H, W, 3) uint8 — or float in [0, 1] — images → numpy outputs."""
+        """(B, H, W, 3) uint8 — or float in [0, 1] — images → numpy outputs;
+        ``"attention"`` only where the fusion has attention maps."""
         if images.dtype != np.uint8:
             images = (np.asarray(images) * 255.0).round().astype(np.uint8)
         batch = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
         return _to_numpy(self.pipeline(batch, self.kg_tensor))
 
     def predict_single_image(self, image_path: str):
-        """(predictions, attention, kg_ordered) like the reference's
-        ``test_multimodal.predict_single_image``."""
+        """(predictions, attention — None for late fusion — , kg_ordered)
+        like the reference's ``test_multimodal.predict_single_image``."""
         image = load_image_rgb(image_path, self.rg_pipeline.image_size)
         out = self.predict_batch(image[None])
         node_mask = out["node_mask"][0]
-        attn = {
-            "rg2kg": out["attention"]["rg2kg"][0][node_mask],
-            "kg2rg": out["attention"]["kg2rg"][0][:, node_mask],
-        }
+        attn = None
+        if "attention" in out:
+            attn = {
+                "rg2kg": out["attention"]["rg2kg"][0][node_mask],
+                "kg2rg": out["attention"]["kg2rg"][0][:, node_mask],
+            }
         predictions = {
             "mask_logits": out["mask_logits"][0],
             "mask_prob": out["mask_prob"][0],
@@ -131,3 +171,157 @@ class MultimodalPredictor:
             "heatmap": out["heatmap"][0],
         }
         return predictions, attn, self.kg_ordered
+
+
+def detect_camouflage(image_path: str, checkpoint_path: str,
+                      output_dir: str = "results",
+                      mask_path: Optional[str] = None,
+                      n_segments: int = 500,
+                      pipeline: Optional[RegionGraphPipeline] = None,
+                      save_figures: bool = True,
+                      image_size: int = 256,
+                      paint_mapping: str = "corrected",
+                      device: str | torch.device = "cuda"):
+    """One image through the RG pipeline → (heatmap, mean score,
+    classification band, GT metrics or None). ``pipeline`` reuses a built
+    one (then ``checkpoint_path`` is not read); ``paint_mapping="verbatim"``
+    reproduces the reference's off-by-one heatmaps."""
+    if save_figures:
+        raise NotImplementedError(f"detect_camouflage(save_figures=True): {_FIGURES}")
+    if pipeline is None:
+        pipeline = RegionGraphPipeline(load_rg_model(checkpoint_path, device),
+                                       n_segments=n_segments, image_size=image_size,
+                                       paint_mapping=paint_mapping)
+    dev = pipeline_device(pipeline)
+    u8 = load_image_u8(image_path, pipeline.image_size)
+    heatmap_dev = pipeline(stages.upload(u8[None], dev))["heatmap"][0]
+    heatmap = heatmap_dev.cpu().numpy()
+    mean_score = float(heatmap.mean())
+    classification, _ = classification_bands(mean_score)
+
+    metrics = None
+    if mask_path and os.path.exists(mask_path):
+        gt = torch.from_numpy(load_mask(mask_path, pipeline.image_size)).to(dev)
+        metrics = {k: float(v) for k, v in evaluate_segmentation(heatmap_dev, gt).items()}
+    return heatmap, mean_score, classification, metrics
+
+
+def test_image_directory(predictor: MultimodalPredictor, image_dir: str,
+                         output_dir: str, max_images: Optional[int] = None,
+                         batch_size: int = 8, save_figures: bool = False) -> List[Dict]:
+    """Every image of ``image_dir`` (sorted; the first ``max_images``)
+    through ``predictor`` in batches padded to ``batch_size``; an image that
+    fails to decode is reported and skipped. Writes and returns the records
+    of ``batch_results.json``."""
+    if save_figures:
+        raise NotImplementedError(f"test_image_directory(save_figures=True): {_FIGURES}")
+    files = sorted(f for f in os.listdir(image_dir)
+                   if os.path.splitext(f)[1].lower() in IMAGE_EXTS)
+    if max_images:
+        files = files[:max_images]
+    os.makedirs(output_dir, exist_ok=True)
+
+    results: List[Dict] = []
+    size = predictor.rg_pipeline.image_size
+    for i in range(0, len(files), batch_size):
+        images, ok_files = [], []
+        for f in files[i: i + batch_size]:
+            try:
+                images.append(load_image_u8(os.path.join(image_dir, f), size))
+                ok_files.append(f)
+            except Exception as e:  # decode fault tolerance
+                print(f"error processing {f}: {e}")
+        if not images:
+            continue
+        out = predictor.predict_batch(stages.pad_batch(images, batch_size))
+        for j, f in enumerate(ok_files):
+            prob = out["mask_prob"][j]
+            pred_label = int(np.argmax(out["mask_logits"][j]))
+            results.append({
+                "image": f,
+                "prediction": "Camouflaged" if pred_label == 1 else "Not Camouflaged",
+                "pred_label": pred_label,
+                "camo_prob": float(prob[1]),
+                "not_camo_prob": float(prob[0]),
+                "score": float(out["score"][j, 0]),
+            })
+
+    with open(os.path.join(output_dir, "batch_results.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    return results
+
+
+def evaluate_directory(checkpoint_path: str, image_dir: str, gt_dir: str,
+                       n_segments: int = 500, batch_size: int = 16,
+                       max_images: Optional[int] = None,
+                       threshold: float = 0.5,
+                       skip_images: int = 0,
+                       files: Optional[List[str]] = None,
+                       data_parallel: Optional[bool] = None,
+                       image_size: int = 256,
+                       feature_norm: Optional[int] = None,
+                       device: str | torch.device = "cuda") -> Dict[str, float]:
+    """Batched RG evaluation: the mean and std of every metric of
+    :func:`eval.metrics.evaluate_segmentation` plus the curve scalars of
+    :func:`eval.curves.batch_curve_metrics`, computed on ``device``.
+
+    ``skip_images`` drops the first N files of the sorted listing (a held
+    out tail); ``files`` (names inside ``image_dir``) replaces the listing;
+    images without a ``<base>.png`` in ``gt_dir`` are skipped.
+    ``feature_norm=256`` runs the reference's /256 position normalization
+    for reference-recipe weights at other sizes. Decode ∥ upload ∥ compute
+    ∥ download overlap as in :mod:`extract`; every batch is padded to
+    ``batch_size``. ``data_parallel=True`` on more than one card is not
+    ported yet and raises; otherwise one card runs it all."""
+    dev = resolve_device(device)
+    if data_parallel and dev.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            "data_parallel evaluation over several cards is not ported yet: "
+            "ROADMAP Queue A, the parallel/ item")
+    pipeline = RegionGraphPipeline(load_rg_model(checkpoint_path, dev),
+                                   n_segments=n_segments, image_size=image_size,
+                                   feature_norm=feature_norm)
+    if files is None:
+        files = sorted(f for f in os.listdir(image_dir)
+                       if os.path.splitext(f)[1].lower() in IMAGE_EXTS)
+        files = files[skip_images:]
+    if max_images:
+        files = files[:max_images]
+    size = pipeline.image_size
+
+    def decode(chunk):
+        """(uint8 images, float masks) of the chunk's GT-paired files."""
+        pairs = [(f, os.path.join(gt_dir, os.path.splitext(f)[0] + ".png")) for f in chunk]
+        pairs = [(f, g) for f, g in pairs if os.path.exists(g)]
+        return ([load_image_u8(os.path.join(image_dir, f), size) for f, _ in pairs],
+                [load_mask(g, size) for _, g in pairs])
+
+    def upload(decoded):
+        images, masks = decoded
+        if not images:
+            return None, masks
+        return stages.upload(stages.pad_batch(images, batch_size), dev), masks
+
+    heatmaps, gts = [], []
+
+    def compute(uploaded):
+        batch, masks = uploaded
+        if batch is None:
+            return None
+        gts.append(np.stack(masks))
+        return pipeline(batch)["heatmap"][:len(masks)]
+
+    chunks = [files[i: i + batch_size] for i in range(0, len(files), batch_size)]
+    stages.run_overlapped(chunks, decode, upload, compute, lambda h: h.cpu().numpy(),
+                          heatmaps.append)
+    preds = torch.from_numpy(np.concatenate(heatmaps)).to(dev)
+    gt = torch.from_numpy(np.concatenate(gts)).to(dev)
+    report = {k: float(v) for k, v in batch_evaluate(preds, gt, threshold).items()}
+    report.update({k: float(v) for k, v in batch_curve_metrics(preds, gt).items()})
+    return report
+
+
+def visualize_prediction(image_path: str, predictions: Dict, attention_weights,
+                         kg_categories_ordered: Dict, output_path: str) -> None:
+    """The reference's 8-panel multimodal figure."""
+    raise NotImplementedError(f"visualize_prediction: {_FIGURES}")

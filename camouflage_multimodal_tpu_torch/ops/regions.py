@@ -13,7 +13,8 @@ Perimeter (|dilate₁(R) \\ R|, 4-connected cross) and boundary contrast
 trick: every pixel contributes once to each DISTINCT foreign label in its
 radius-2 diamond, and the contributions are rolled back onto the receiving
 pixel so all statistics share one index array — seventeen channels summed
-into K bins by a single ``index_add_`` (labels ≥ K are dropped).
+into K bins by a single :func:`index_sum` (labels ≥ K are dropped), whose
+order is fixed on the card too.
 """
 
 from __future__ import annotations
@@ -56,14 +57,35 @@ def _distinct_foreign_neighbors(seg: torch.Tensor, offsets) -> torch.Tensor:
     return torch.stack(keep, dim=-1)
 
 
+def index_sum_sorted(vals: torch.Tensor, idx: torch.Tensor, nbins: int) -> torch.Tensor:
+    """:func:`index_sum` without atomics: a stable sort of the rows by bin,
+    then ``segment_reduce``, which adds each bin's rows one after another
+    in the sorted order — row order within a bin, as ``index_add_`` on
+    the CPU adds them. Any device; the card's route."""
+    order = torch.argsort(idx, stable=True)
+    bounds = torch.searchsorted(idx[order], torch.arange(nbins + 1, device=idx.device))
+    return torch.segment_reduce(vals[order], "sum", offsets=bounds, axis=0, unsafe=True)
+
+
+def index_sum(vals: torch.Tensor, idx: torch.Tensor, nbins: int) -> torch.Tensor:
+    """(M, C) rows summed into (nbins, C) bins by (M,) int64 ids in
+    [0, nbins), in a fixed order. On the CPU ``index_add_``; on the card
+    ``index_add_`` adds with float atomics whose order changes from run to
+    run, so a graph build would differ in its last bits between runs:
+    :func:`index_sum_sorted` gives the same bits on every run."""
+    if vals.device.type == "cpu":
+        out = torch.zeros(nbins, vals.shape[1], dtype=vals.dtype)
+        return out.index_add_(0, idx, vals)
+    return index_sum_sorted(vals, idx, nbins)
+
+
 def segment_sum(vals: torch.Tensor, seg: torch.Tensor, K: int) -> torch.Tensor:
     """(B, N, C) values summed into (B, K, C) bins by (B, N) labels; labels
     outside [0, K) are dropped."""
     B, N, C = vals.shape
     seg = torch.where((seg >= 0) & (seg < K), seg, K)
     idx = (seg + (K + 1) * torch.arange(B, device=seg.device)[:, None]).reshape(-1)
-    out = torch.zeros(B * (K + 1), C, dtype=vals.dtype, device=vals.device)
-    out.index_add_(0, idx, vals.reshape(-1, C))
+    out = index_sum(vals.reshape(-1, C), idx, B * (K + 1))
     return out.reshape(B, K + 1, C)[:, :K]
 
 

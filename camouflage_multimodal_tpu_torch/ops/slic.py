@@ -15,7 +15,8 @@ whenever the drift ratio this function returns is < 1 (see
 :func:`window_drift_bound`), so the port computes what the JAX main path
 computes and its ``window_drift`` output stays comparable. Because the
 assignment sweeps all K centers, the center update is the scatter form
-(``index_add_`` of ``[pix, 1]``, then divide, keeping empty centers) of the
+(a fixed-order sum of ``[pix, 1]``, ``ops.regions.index_sum``, then divide,
+keeping empty centers) of the
 JAX package's Pallas backend (``ops/slic.py:234-241``); the blocked one-hot
 update of its windowed path is only valid inside the window.
 
@@ -33,6 +34,7 @@ import torch
 
 from camouflage_multimodal_tpu_torch.core import kernels
 from camouflage_multimodal_tpu_torch.ops.image import gaussian_blur, rgb_to_lab
+from camouflage_multimodal_tpu_torch.ops.regions import index_sum
 
 
 def slic_step(n_segments: int, height: int, width: int) -> int:
@@ -208,8 +210,7 @@ def update_centers(pix: torch.Tensor, labels: torch.Tensor,
     K = centers.shape[1]
     ones = torch.ones(B, HW, 1, dtype=pix.dtype, device=pix.device)
     idx = (labels.long() + K * torch.arange(B, device=pix.device)[:, None]).reshape(-1)
-    moments = torch.zeros(B * K, 6, dtype=pix.dtype, device=pix.device)
-    moments.index_add_(0, idx, torch.cat([pix, ones], dim=-1).reshape(-1, 6))
+    moments = index_sum(torch.cat([pix, ones], dim=-1).reshape(-1, 6), idx, B * K)
     moments = moments.reshape(B, K, 6)
     count = moments[..., 5:6]
     new = moments[..., :5] / torch.clamp(count, min=1.0)

@@ -185,6 +185,8 @@ class MultimodalPipeline:
         with record_function("cmt::fusion"):
             out = self.fusion_model(rg_out["node_embeddings"], kg,
                                     rg_mask=rg_out["node_mask"], return_attention=True)
+        if out["attention"] is None:
+            del out["attention"]      # late fusion exposes no attention maps
         out["mask_prob"] = torch.softmax(out["mask_logits"], dim=-1)
         out["instance_prob"] = torch.softmax(out["instance_logits"], dim=-1)
         out["edge_prob"] = torch.sigmoid(out["edge_logits"])

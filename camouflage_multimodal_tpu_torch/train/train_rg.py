@@ -226,10 +226,10 @@ class RGTrainer:
         """Train on ``device`` (``"cuda"`` raises without a card; ``"cpu"``
         runs the plain versions) over a dataset with ``load_batch`` (a
         :class:`data.CODDataset`). ``resume_path`` snapshots the run after
-        every epoch and ``resume_from`` continues one bit-exactly on the same
-        cached graphs (on the card, ``index_add_``'s atomics may change the
-        last bits of a rebuilt dataset's features). Returns (the trained
-        model, history)."""
+        every epoch and ``resume_from`` continues one bit-exactly, on the card
+        too when it rebuilds its graphs: the build's segment sums run in a
+        fixed order there (``ops.regions.index_sum``), so a rebuilt dataset
+        has the same bits. Returns (the trained model, history)."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (data-parallel RG training) is not ported yet: "

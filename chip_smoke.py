@@ -4,11 +4,14 @@
     python3 chip_smoke.py [--batches N] [--profile TRACE_JSON]
     python3 chip_smoke.py --b2-digest
     python3 chip_smoke.py --rg-lr-probe
+    python3 chip_smoke.py --build-cost
 
-Four paths of the port are driven: multimodal inference
+Five paths of the port are driven: multimodal inference
 (``MultimodalPredictor``), fusion training (``FusionTrainer``),
-region-graph training (``RGTrainer``) and knowledge-graph training with its
-embedding factory (``KGTrainer``).
+region-graph training (``RGTrainer``), knowledge-graph training with its
+embedding factory (``KGTrainer``) and the workflow that joins them
+(extraction → matched fusion dataset → fusion epoch, directory evaluation
+and directory testing).
 
 Phases, each failing the run (nonzero exit, no result line) when it fails:
 
@@ -25,8 +28,8 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    the kernel's per-tile candidate lists;
 3. kernel B2 ``fused_mha`` against its plain version with the committed
    fusion weights in both directions of the main path (4 × 640 queries ×
-   13 keys and 4 × 13 queries × 640 keys, partial key masks), at the
-   training shapes (576) and on a ragged case (37 queries × 75 keys, one
+   13 keys and 4 × 13 queries × 640 keys, partial key masks), the same at
+   batch 8 as directory testing calls it, at the training shapes (576) and on a ragged case (37 queries × 75 keys, one
    batch row with every key masked): out within rtol/atol 1e-4,
    probabilities within rtol 1e-3 / atol 2e-3, a repeat bit-equal, and
    what it keeps for B3 (projected q, k, v, the context, the split pass's
@@ -91,7 +94,34 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    ``load_kg_embeddings`` gives 13 finite (1, 128) vectors; the committed
    ``kg_gnn_model.ckpt`` through ``api.load_kg_model`` embeds 8 subgraphs
    on the card within 1e-5 of the CPU port;
-9. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel
+9. the workflow, on 32 seeded 256² images written as COD10K-named JPEGs
+   over the 13 committed KG categories with object, instance and edge GT
+   PNGs (``BlobDataset``'s disc and ring), through the directory walks (PIL
+   decode): ``batch_extract_embeddings`` with ``rg_model.ckpt`` at batch 16
+   (B1 exactly 20 launches), the store read back by
+   ``load_rg_embeddings``, a 4-image subset on the card and the CPU
+   (segment maps ≥ 99 % equal, graph embeddings within 1e-2);
+   ``EmbeddingMatcher`` on that store and ``all_embeddings.npz`` (every
+   organism matched) → ``FusionDataset`` from the GT files → one
+   ``FusionTrainer`` epoch at full width (B2 twice per train and eval step,
+   B3 twice per train step, finite losses); ``evaluate_directory`` at batch
+   16 (B1 20 launches), the metric and curve functions on the card's
+   heatmaps within 1e-5 of the same functions on the CPU and the report of
+   a 4-image subset within 1e-2 of the CPU's; ``test_image_directory`` at
+   batch 8 with the cross-attention and the late checkpoint (first B1
+   against its plain version on its first batch of 8, seed and
+   fifth-iteration centers: labels equal; then B1 40 launches each, B2 8
+   and 0), both ``batch_results.json`` whole; a
+   predictor from the reference's ``.pth`` pair answering one batch; two
+   card builds of 16 images equal to the bit (segments, features,
+   adjacency, edge weights, node embeddings, heatmap). Every step's launch
+   counts are zeroed just before it and read just after. Prints extraction
+   and evaluation images per second end to end (decode threads included)
+   and ms per build of 16. Then 96 more such files are extracted and
+   evaluated at batch 16 with the four-stage overlap and with the stages
+   run one after another, in turns, and the images per second of each run
+   are printed with the serial runs' seconds per stage;
+10. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel
    (B1 at each pixel-tile shape), the host time to enqueue one call, its
    plain version, ``torch.nn.functional.multi_head_attention_forward``
    (and its autograd backward) as B2's and B3's library yardstick (the port
@@ -106,10 +136,14 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    without and with a cotangent for the attention maps) and writes the
    batch's Chrome trace to the path given.
 
-``--b2-digest`` builds B2 alone, runs it on the five shapes of phase 3 and
+``--b2-digest`` builds B2 alone, runs it on the seven shapes of phase 3 and
 prints the SHA-256 of ``out`` and ``probs`` per shape, then stops: copied
 into a checkout of another commit and run there, the script shows whether
 two versions of the kernel give the same bits.
+
+``--build-cost`` builds the kernels and times only the RG graph build of
+16 images and the inference batch of 4 (three rounds of five), then
+stops: copied into a checkout of another commit, it compares the two.
 
 ``--rg-lr-probe`` runs phase 7's card-vs-CPU comparison alone on five data
 seeds, at the recipe's learning rate 1e-3 and at the comparison's 1e-4,
@@ -146,10 +180,13 @@ TRAIN_NODES = 576          # FusionDataset's default node bucket
 TRAIN_RECORDS = 64
 TRAIN_EPOCHS = 2
 GRAD_NAMES = ("d_q", "d_k", "d_v", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
-# (name, queries, keys) of B2's checks: both directions at the inference and
-# the training bucket, and a ragged case.
-B2_SHAPES = (("rg2kg", 640, 13), ("kg2rg", 13, 640), ("rg2kg_576", TRAIN_NODES, 13),
-             ("kg2rg_576", 13, TRAIN_NODES), ("ragged_37x75", 37, 75))
+# (name, batch, queries, keys) of B2's checks: both directions at the
+# inference bucket (batch 4, and batch 8 as directory testing calls it) and
+# at the training bucket, and a ragged case.
+B2_SHAPES = (("rg2kg", BATCH, 640, 13), ("kg2rg", BATCH, 13, 640),
+             ("rg2kg_b8", 8, 640, 13), ("kg2rg_b8", 8, 13, 640),
+             ("rg2kg_576", BATCH, TRAIN_NODES, 13), ("kg2rg_576", BATCH, 13, TRAIN_NODES),
+             ("ragged_37x75", BATCH, 37, 75))
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 on the CUDA
 # cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -338,12 +375,27 @@ def check_slic_cases(torch, slic_mod, cases) -> int:
     return worst
 
 
-def mha_inputs(torch, fusion_model, nq, nk, seed):
+def check_slic_batch(torch, slic_mod, images_u8, what: str) -> int:
+    """B1 held to its plain version at the shape a path gives it: a batch
+    of 256² images against K=529, at the seed and the fifth-iteration
+    centers."""
+    n = len(images_u8)
+    pix, c0, _, step, ratio = slic_state(torch, slic_mod, images_u8, 0)
+    _, c5, prev5, _, _ = slic_state(torch, slic_mod, images_u8, 5)
+    if pix.shape != (n, SIZE * SIZE, 5) or c0.shape[1] != 529 or step != 11:
+        fail(f"B1 shapes {tuple(pix.shape)}, K={c0.shape[1]}, step={step} are not {what}'s")
+    return check_slic_cases(torch, slic_mod, [
+        (f"{what}_{n}_seed", SIZE, SIZE, pix, c0, torch.zeros_like(prev5), step, ratio),
+        (f"{what}_{n}_iter5", SIZE, SIZE, pix, c5, prev5, step, ratio)])
+
+
+def mha_inputs(torch, fusion_model, nq, nk, seed, batch=BATCH):
     g = torch.Generator(device="cuda").manual_seed(seed)
     E = 256
-    q = torch.relu(torch.randn(BATCH, nq, E, generator=g, device="cuda"))
-    k = torch.randn(BATCH, nk, E, generator=g, device="cuda") * 0.5
-    lens = torch.tensor([nk, nk - 3, max(1, nk // 2), max(1, nk - 100)], device="cuda")
+    q = torch.relu(torch.randn(batch, nq, E, generator=g, device="cuda"))
+    k = torch.randn(batch, nk, E, generator=g, device="cuda") * 0.5
+    lens = [nk, nk - 3, max(1, nk // 2), max(1, nk - 100)]
+    lens = torch.tensor([lens[i % 4] for i in range(batch)], device="cuda")
     mask = torch.arange(nk, device="cuda")[None] < lens[:, None]
     attn = (fusion_model.fusion.cross_attn_rg2kg if nq > nk
             else fusion_model.fusion.cross_attn_kg2rg)
@@ -356,8 +408,9 @@ def mha_inputs(torch, fusion_model, nq, nk, seed):
 def phase_fused_mha(torch, kernels, attention_mod, fusion_model):
     worst_out = worst_p = 0.0
     cases = {}
-    for name, nq, nk in B2_SHAPES:
-        params, q, k, mask = mha_inputs(torch, fusion_model, nq, nk, seed=nq)
+    for name, batch, nq, nk in B2_SHAPES:
+        params, q, k, mask = mha_inputs(torch, fusion_model, nq, nk, seed=nq + batch - BATCH,
+                                        batch=batch)
         if name.startswith("ragged"):
             mask = mask.clone()
             mask[2] = False            # a batch row with every key masked
@@ -394,7 +447,7 @@ def phase_fused_mha(torch, kernels, attention_mod, fusion_model):
               and torch.allclose(got_p, want_p, rtol=1e-3, atol=2e-3)
               and bool(torch.isfinite(got_out).all()) and bool(torch.isfinite(got_p).all())
               and repeat and launched == 1 and max(e_saved.values()) <= 1e-4)
-        emit({"phase": "fused_mha_check", "direction": name, "nq": nq, "nk": nk,
+        emit({"phase": "fused_mha_check", "direction": name, "batch": batch, "nq": nq, "nk": nk,
               "max_abs_err_out": e_out, "max_abs_err_probs": e_p,
               "max_abs_err_saved": e_saved, "bit_equal_repeat": repeat, "launches": launched, "ok": ok})
         if not ok:
@@ -410,14 +463,15 @@ def b2_digest(torch, attention_mod, fusion_model):
     ``phase_fused_mha``: equal lines from two checkouts mean equal bits."""
     import hashlib
 
-    for name, nq, nk in B2_SHAPES:
-        params, q, k, mask = mha_inputs(torch, fusion_model, nq, nk, seed=nq)
+    for name, batch, nq, nk in B2_SHAPES:
+        params, q, k, mask = mha_inputs(torch, fusion_model, nq, nk, seed=nq + batch - BATCH,
+                                        batch=batch)
         if name.startswith("ragged"):
             mask = mask.clone()
             mask[2] = False
         out, probs = attention_mod.fused_mha(params, q, k, k, 8, mask)
         torch.cuda.synchronize()
-        emit({"b2_digest": name, "nq": nq, "nk": nk,
+        emit({"b2_digest": name, "batch": batch, "nq": nq, "nk": nk,
               "out": hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest(),
               "probs": hashlib.sha256(probs.cpu().numpy().tobytes()).hexdigest()})
 
@@ -779,15 +833,7 @@ def phase_train_rg(torch, np, kernels, api, out_dir):
     ckpt = os.path.join(out_dir, "rg_best.ckpt")
 
     # B1 at the shape the build gives it: the first build batch of 16.
-    images = ds.load_batch(list(range(16)))["image"]
-    pix, c0, _, step, ratio = slic_state(torch, slic_mod, images, 0)
-    _, c5, prev5, _, _ = slic_state(torch, slic_mod, images, 5)
-    if pix.shape != (16, SIZE * SIZE, 5) or c0.shape[1] != 529 or step != 11:
-        fail(f"B1 shapes {tuple(pix.shape)}, K={c0.shape[1]}, step={step} are not the build's")
-    check_slic_cases(torch, slic_mod, [
-        ("rg_build_16_seed", SIZE, SIZE, pix, c0, torch.zeros_like(prev5), step, ratio),
-        ("rg_build_16_iter5", SIZE, SIZE, pix, c5, prev5, step, ratio)])
-    del pix, c0, c5, prev5
+    check_slic_batch(torch, slic_mod, ds.load_batch(list(range(16)))["image"], "rg_build")
 
     kernels.reset_launches()
     trainer, history, build_launches, build_s, epoch_s = fit_rg(
@@ -984,6 +1030,313 @@ def phase_train_kg(torch, np, kernels, api, out_dir):
     if err > 1e-5:
         fail(f"the committed KG checkpoint's embeddings differ on the card by {err}")
     return trainer, subgraphs
+
+
+# ---------------------------------------------------------------------------
+# The workflow: extraction → matcher → fusion epoch → evaluation → testing
+# ---------------------------------------------------------------------------
+
+WORKFLOW_IMAGES = 32       # two extraction / evaluation batches of 16
+WORKFLOW_BATCH = 16
+TEST_DIR_BATCH = 8
+WORKFLOW_SUBSET = 4        # images compared with the CPU
+ENVIRONMENTS = ("Aquatic", "Terrestrial", "Flying", "Amphibian")
+REFERENCE_PTH = ("artifacts/fidelity/multimodal_best.pth", "artifacts/fidelity/best_model.pth")
+LATE_CKPT = "artifacts/checkpoints_late/multimodal_best_fixed.ckpt"
+
+
+def write_workflow_dataset(np, root: str, n: int = WORKFLOW_IMAGES):
+    """``n`` seeded 256² images of ``BlobDataset`` (a disc in a smooth scene)
+    as COD10K-named JPEGs over the 13 committed KG categories, with the disc
+    as object and instance GT and its ring as edge GT (PNGs). Returns the
+    directories and the image names in the directory walks' (sorted) order."""
+    from PIL import Image
+
+    with np.load(ARTIFACTS[2]) as z:
+        categories = sorted(z.files)
+    dirs = {k: os.path.join(root, k) for k in ("images", "gt_object", "gt_instance", "gt_edge")}
+    for d in dirs.values():
+        os.makedirs(d)
+    names = []
+    for i, (img, mask, ring) in enumerate(BlobDataset(np, n, seed=41).items):
+        base = f"COD10K-CAM-{1 + i % 4}-{ENVIRONMENTS[i % 4]}-{1 + i // 4}-{categories[i % 13]}-{100 + i}"
+        names.append(base + ".jpg")
+        Image.fromarray(img).save(os.path.join(dirs["images"], base + ".jpg"), quality=95)
+        for key, gt in (("gt_object", mask), ("gt_instance", mask), ("gt_edge", ring)):
+            Image.fromarray(gt).save(os.path.join(dirs[key], base + ".png"))
+    return dirs, sorted(names)
+
+
+def counted(torch, kernels, fn):
+    """(fn(), seconds, launches) with the launch counts zeroed just before
+    and read just after, the card synchronised."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def expect(launches, want, what):
+    emit({"phase": "workflow_launches", "of": what, "launches": launches,
+          "expected_launches": want})
+    if launches != want:
+        fail(f"{what} launched {launches}, expected {want}")
+
+
+def phase_workflow(torch, np, kernels, api, out_dir):
+    """Drive extraction, the matched fusion dataset, one fusion epoch,
+    directory evaluation and directory testing at full width on seeded
+    files; returns (the launches of each step, their sum)."""
+    import PIL
+
+    from camouflage_multimodal_tpu_torch import data as data_mod
+    from camouflage_multimodal_tpu_torch.eval import curves as curves_mod
+    from camouflage_multimodal_tpu_torch.eval import metrics as metrics_mod
+    from camouflage_multimodal_tpu_torch.extract import batch_extract_embeddings, load_image_u8
+    from camouflage_multimodal_tpu_torch.ops import slic as slic_mod
+    from camouflage_multimodal_tpu_torch.pipeline import RegionGraphPipeline, build_region_graphs
+    from camouflage_multimodal_tpu_torch.train import train_fusion as train_mod
+
+    dirs, names = write_workflow_dataset(np, os.path.join(out_dir, "workflow"))
+    subset = os.path.join(out_dir, "workflow", "subset")
+    os.makedirs(subset)
+    for name in names[:WORKFLOW_SUBSET]:
+        os.symlink(os.path.join(dirs["images"], name), os.path.join(subset, name))
+    emit({"phase": "workflow_data", "route": f"directory walk, PIL {PIL.__version__} decode",
+          "images": len(names), "size": SIZE, "first": names[0]})
+    steps = {}
+    batches = -(-WORKFLOW_IMAGES // WORKFLOW_BATCH)
+
+    # Extraction through the directory walk; the store read back.
+    card_pipe = RegionGraphPipeline(api.load_rg_model(ARTIFACTS[1], device="cuda"))
+    store_dir = os.path.join(out_dir, "workflow", "rg")
+    (store, _), extract_s, steps["extract"] = counted(torch, kernels, lambda: batch_extract_embeddings(
+        card_pipe, dirs["images"], store_dir, batch_size=WORKFLOW_BATCH, log_fn=lambda *_: None))
+    expect(steps["extract"], {"slic_assign": SLIC_ITERS * batches, "fused_mha": 0,
+                              "fused_mha_bwd": 0}, "extraction")
+    store_path = os.path.join(store_dir, "all_rg_embeddings.npz")
+    back = data_mod.load_rg_embeddings(store_path)
+    if list(back) != names or not all(np.isfinite(r["node_embeddings"]).all() for r in back.values()):
+        fail("the extracted store does not read back whole and finite")
+    sub = {}
+    for dev in ("cuda", "cpu"):
+        pipe = card_pipe if dev == "cuda" else RegionGraphPipeline(api.load_rg_model(ARTIFACTS[1], device="cpu"))
+        batch_extract_embeddings(pipe, subset, os.path.join(out_dir, "workflow", f"sub_{dev}"),
+                                 batch_size=WORKFLOW_SUBSET, save_individual=True, log_fn=lambda *_: None)
+        sub[dev] = {}
+        for name in names[:WORKFLOW_SUBSET]:
+            path = os.path.join(out_dir, "workflow", f"sub_{dev}", name[:-4] + "_embedding.npz")
+            with np.load(path) as z:
+                sub[dev][name] = (z["segments"], z["graph_embedding"])
+    seg_eq = min(float((sub["cuda"][n][0] == sub["cpu"][n][0]).mean()) for n in sub["cpu"])
+    graph_err = max(float(np.abs(sub["cuda"][n][1] - sub["cpu"][n][1]).max()) for n in sub["cpu"])
+    store_err = max(float(np.abs(sub["cuda"][n][1] - back[n]["graph_embedding"]).max()) for n in sub["cpu"])
+    emit({"phase": "workflow_extract", "images": len(store), "batch": WORKFLOW_BATCH,
+          "seconds": extract_s, "nodes": [r["num_nodes"] for r in back.values()],
+          "subset_vs_cpu": {"images": WORKFLOW_SUBSET, "segments_equal_min": seg_eq,
+                            "graph_embedding_max_abs_diff": graph_err},
+          "subset_vs_full_run_graph_embedding_max_abs_diff": store_err})
+    if seg_eq < 0.99 or graph_err > 1e-2:
+        fail(f"card extraction disagrees with the CPU: segments {seg_eq}, graph embeddings {graph_err}")
+
+    # The matched fusion dataset and one epoch trained from it.
+    matcher = data_mod.EmbeddingMatcher(store_path, ARTIFACTS[2])
+    matched = matcher.create_matched_dataset(True)
+    organisms = [matcher.extract_category_from_filename(n) for n in names]
+    ds = train_mod.FusionDataset(matched, dirs["gt_object"], dirs["gt_instance"], dirs["gt_edge"],
+                                 log_fn=lambda *_: None)
+    trainer = train_mod.FusionTrainer(model_config={"dropout": 0.0, "use_pallas": True})
+    (_, history), train_s, steps["fusion_epoch"] = counted(torch, kernels, lambda: trainer.fit(
+        ds, epochs=1, batch_size=BATCH, seed=0, device_resident=True, device="cuda",
+        checkpoint_dir=os.path.join(out_dir, "workflow", "fusion"), log_fn=lambda *_: None))
+    n_train = int(0.8 * len(ds))
+    train_steps, eval_steps = max(n_train // BATCH, 1), max((len(ds) - n_train) // BATCH, 1)
+    emit({"phase": "workflow_fusion_epoch", "records": len(ds), "bucket": ds.max_rg_nodes,
+          "truncated_nodes": ds.truncated_nodes, "labels": ds.get_labels(),
+          "organisms_matched": sum(o is not None for o in organisms),
+          "kg_categories": int(matched[0]["num_kg_categories"]), "seconds": train_s,
+          "history": history})
+    expect(steps["fusion_epoch"], {"slic_assign": 0, "fused_mha": 2 * (train_steps + eval_steps),
+                                   "fused_mha_bwd": 2 * train_steps}, "fusion epoch")
+    if len(ds) != WORKFLOW_IMAGES or None in organisms or not np.isfinite(
+            history["train_loss"] + history["val_loss"]).all():
+        fail(f"the matched dataset or its epoch is wrong: {len(ds)} records, losses {history}")
+
+    # Evaluation: the report, the metrics on the card's heatmaps, the CPU.
+    report, eval_s, steps["evaluate"] = counted(torch, kernels, lambda: api.evaluate_directory(
+        ARTIFACTS[1], dirs["images"], dirs["gt_object"], batch_size=WORKFLOW_BATCH, device="cuda"))
+    expect(steps["evaluate"], {"slic_assign": SLIC_ITERS * batches, "fused_mha": 0,
+                               "fused_mha_bwd": 0}, "evaluation")
+    images = np.stack([load_image_u8(os.path.join(dirs["images"], n), SIZE)
+                       for n in names[:WORKFLOW_BATCH]])
+    gts = np.stack([data_mod.load_mask(os.path.join(dirs["gt_object"], n[:-4] + ".png"), SIZE)
+                    for n in names[:WORKFLOW_BATCH]])
+    heat = card_pipe(torch.from_numpy(images).cuda())["heatmap"]
+    gt = torch.from_numpy(gts).cuda()
+    metric_err = 0.0
+    for fn in (metrics_mod.evaluate_segmentation, metrics_mod.batch_evaluate,
+               curves_mod.threshold_curves):
+        card, plain = fn(heat, gt), fn(heat.cpu(), gt.cpu())
+        metric_err = max(metric_err, *(float((card[k].cpu() - plain[k]).abs().max()) for k in plain))
+    sub_reports = {dev: api.evaluate_directory(ARTIFACTS[1], dirs["images"], dirs["gt_object"],
+                                               files=names[:WORKFLOW_SUBSET],
+                                               batch_size=WORKFLOW_SUBSET, device=dev)
+                   for dev in ("cuda", "cpu")}
+    report_err = max(abs(sub_reports["cuda"][k] - sub_reports["cpu"][k]) for k in sub_reports["cpu"])
+    emit({"phase": "workflow_evaluate", "images": WORKFLOW_IMAGES, "seconds": eval_s,
+          "report": report, "card_metrics_vs_plain_max_abs_diff": metric_err,
+          "subset_report_vs_cpu_max_abs_diff": report_err})
+    if metric_err > 1e-5 or report_err > 1e-2 or not all(np.isfinite(v) for v in report.values()):
+        fail(f"evaluation disagrees: metrics {metric_err}, subset report {report_err}")
+
+    # Directory testing with both committed fusion checkpoints; B1 first held
+    # to its plain version on its first batch of 8 (B2's batch-8 shapes are
+    # among phase_fused_mha's).
+    check_slic_batch(torch, slic_mod, images[:TEST_DIR_BATCH], "test_dir")
+    tests = {}
+    for kind, ckpt in (("cross_attention", ARTIFACTS[0]), ("late", LATE_CKPT)):
+        predictor = api.MultimodalPredictor(ckpt, *ARTIFACTS[1:], device="cuda")
+        out = os.path.join(out_dir, "workflow", f"test_{kind}")
+        results, test_s, steps[f"test_dir_{kind}"] = counted(torch, kernels, lambda: api.test_image_directory(
+            predictor, dirs["images"], out, batch_size=TEST_DIR_BATCH))
+        test_batches = -(-WORKFLOW_IMAGES // TEST_DIR_BATCH)
+        expect(steps[f"test_dir_{kind}"], {
+            "slic_assign": SLIC_ITERS * test_batches,
+            "fused_mha": 2 * test_batches if kind == "cross_attention" else 0,
+            "fused_mha_bwd": 0}, f"directory testing ({kind})")
+        with open(os.path.join(out, "batch_results.json")) as f:
+            written = json.load(f)
+        tests[kind] = {"seconds": test_s, "camouflaged": sum(r["pred_label"] for r in results)}
+        if written != results or len(results) != WORKFLOW_IMAGES or not all(
+                np.isfinite(r["score"]) for r in results):
+            fail(f"directory testing ({kind}) wrote {len(written)} records")
+    emit({"phase": "workflow_test_dir", "batch": TEST_DIR_BATCH, **tests})
+
+    # The reference's .pth pair in a predictor.
+    predictor = api.MultimodalPredictor(*REFERENCE_PTH, ARTIFACTS[2], device="cuda")
+    out, _, steps["reference_pth_batch"] = counted(
+        torch, kernels, lambda: predictor.predict_batch(images[:BATCH]))
+    expect(steps["reference_pth_batch"], {"slic_assign": SLIC_ITERS, "fused_mha": 2,
+                                          "fused_mha_bwd": 0}, "the reference .pth predictor")
+    emit({"phase": "workflow_reference_pth", "score": out["score"][:, 0].tolist(),
+          "attention_rg2kg_shape": list(out["attention"]["rg2kg"].shape)})
+    if not all(np.isfinite(out[k]).all() for k in ("heatmap", "mask_prob", "score")):
+        fail("the reference .pth predictor gives non-finite outputs")
+
+    # The graph build repeats to the bit; ms per build of 16.
+    imgs = torch.from_numpy(images).cuda()
+    first = build_region_graphs(imgs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = build_region_graphs(imgs)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    outs = [card_pipe(imgs) for _ in range(2)]
+    equal = {k: torch.equal(getattr(first, k), getattr(again, k))
+             for k in ("segments", "features", "adjacency", "edge_weights", "node_mask")}
+    equal.update({k: torch.equal(outs[0][k], outs[1][k]) for k in ("node_embeddings", "heatmap")})
+    emit({"phase": "workflow_determinism", "images": WORKFLOW_BATCH, "bit_equal": equal})
+    if not all(equal.values()):
+        fail(f"two card builds of the same images differ: {equal}")
+
+    emit({"phase": "workflow_time", "extraction_images_per_second": WORKFLOW_IMAGES / extract_s,
+          "evaluation_images_per_second": WORKFLOW_IMAGES / eval_s,
+          "rg_build_ms_per_batch_of_16": build_ms, "fusion_epoch_seconds": train_s,
+          "test_dir_images_per_second": {k: WORKFLOW_IMAGES / v["seconds"] for k, v in tests.items()},
+          "note": "end to end from the files: PIL decode threads, uploads and downloads included; "
+                  "first use of each entry point in this process"})
+    total = {k: sum(s[k] for s in steps.values()) for k in kernels.LAUNCHES}
+    return steps, total
+
+
+OVERLAP_IMAGES = 96        # six batches of 16 for the overlap timing
+
+
+def phase_overlap(torch, np, api, out_dir):
+    """Extraction and evaluation of 96 seeded files at batch 16, each with
+    the directory walks' four-stage overlap (``stages.run_overlapped``) and
+    with the same stages run one after another (each waited for, timed
+    alone), in the order overlapped, serial, serial, overlapped; prints the
+    img/s of each run and the serial runs' seconds per stage."""
+    from camouflage_multimodal_tpu_torch.core import stages
+    from camouflage_multimodal_tpu_torch.extract import batch_extract_embeddings
+    from camouflage_multimodal_tpu_torch.pipeline import RegionGraphPipeline
+
+    dirs, _ = write_workflow_dataset(np, os.path.join(out_dir, "overlap"), OVERLAP_IMAGES)
+    pipe = RegionGraphPipeline(api.load_rg_model(ARTIFACTS[1], device="cuda"))
+    overlapped = stages.run_overlapped
+    clock = {}
+
+    def serial(chunks, decode, upload_fn, compute, download_fn, record):
+        def timed(name, fn, x):
+            t0 = time.perf_counter()
+            y = fn(x)
+            torch.cuda.synchronize()
+            clock[name] = clock.get(name, 0.0) + time.perf_counter() - t0
+            return y
+
+        for chunk in chunks:
+            out = timed("compute", compute, timed("upload", upload_fn, timed("decode", decode, chunk)))
+            if out is not None:
+                t0 = time.perf_counter()
+                record(timed("download", download_fn, out))
+                clock["record"] = clock.get("record", 0.0) + time.perf_counter() - t0
+
+    walks = {
+        "extraction": lambda: batch_extract_embeddings(
+            pipe, dirs["images"], os.path.join(out_dir, "overlap", "rg"),
+            batch_size=WORKFLOW_BATCH, log_fn=lambda *_: None),
+        "evaluation": lambda: api.evaluate_directory(
+            ARTIFACTS[1], dirs["images"], dirs["gt_object"], batch_size=WORKFLOW_BATCH,
+            device="cuda"),
+    }
+    rates = {}
+    for what, walk in walks.items():
+        clock.clear()
+        rates[what] = {"overlapped": [], "serial": []}
+        for mode in ("overlapped", "serial", "serial", "overlapped"):
+            stages.run_overlapped = overlapped if mode == "overlapped" else serial
+            try:
+                t0 = time.perf_counter()
+                walk()
+                torch.cuda.synchronize()
+                rates[what][mode].append(OVERLAP_IMAGES / (time.perf_counter() - t0))
+            finally:
+                stages.run_overlapped = overlapped
+        rates[what]["serial_seconds_per_stage"] = {k: v / 2 for k, v in clock.items()}
+    emit({"phase": "workflow_overlap", "images": OVERLAP_IMAGES, "batch": WORKFLOW_BATCH,
+          "images_per_second": rates,
+          "note": "end to end from the files, PIL decode included; serial runs wait for "
+                  "each stage; evaluation loads its checkpoint in every run"})
+
+
+def build_cost(torch, np, api, reps: int = 5):
+    """``--build-cost``: ms per RG graph build of 16 images and per
+    inference batch of 4 at 256², three rounds of each; runs on any
+    checkout whose port has ``build_region_graphs`` and
+    ``MultimodalPredictor``."""
+    from camouflage_multimodal_tpu_torch.pipeline import build_region_graphs
+
+    imgs = torch.from_numpy(BlobDataset(np, 16).load_batch(list(range(16)))["image"]).cuda()
+    predictor = api.MultimodalPredictor(*ARTIFACTS, device="cuda")
+    batches = [synthetic_images(100 + i, BATCH, SIZE) for i in range(reps)]
+
+    def rounds(fn):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) / reps * 1e3)
+        return out
+
+    emit({"phase": "build_cost", "checkout": REPO,
+          "rg_build_ms_per_batch_of_16": rounds(lambda i=0: build_region_graphs(imgs)),
+          "inference_ms_per_batch_of_4": rounds(lambda i=0: predictor.predict_batch(batches[i]))})
 
 
 def phase_times_graph_training(torch, np, rg_trainer, rg_ds, kg_trainer, kg_subgraphs, profile):
@@ -1397,6 +1750,8 @@ def main() -> None:
                     help="print SHA-256 digests of B2's outputs on its check shapes and stop")
     ap.add_argument("--rg-lr-probe", action="store_true",
                     help="run the RG card-vs-CPU comparison on five data seeds and stop")
+    ap.add_argument("--build-cost", action="store_true",
+                    help="time the RG graph build of 16 and an inference batch of 4 and stop")
     args = ap.parse_args()
     trace = os.path.abspath(args.profile) if args.profile else None
 
@@ -1426,6 +1781,10 @@ def main() -> None:
         phase_build(kernels)
         rg_lr_probe(torch, np)
         return
+    if args.build_cost:
+        phase_build(kernels)
+        build_cost(torch, np, api)
+        return
     if args.b2_digest:
         fusion_model, _ = api.load_multimodal_model(ARTIFACTS[0], device="cuda")
         b2_digest(torch, attention_mod, fusion_model)
@@ -1441,6 +1800,8 @@ def main() -> None:
             torch, np, kernels, api, train_mod, out_dir)
         rg_trainer, rg_ds, rg_launches = phase_train_rg(torch, np, kernels, api, out_dir)
         kg_trainer, kg_subgraphs = phase_train_kg(torch, np, kernels, api, out_dir)
+        _, workflow_launches = phase_workflow(torch, np, kernels, api, out_dir)
+        phase_overlap(torch, np, api, out_dir)
     (b1_ms, b1_host, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
         torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches, trace)
     b3, b3_bound = phase_times_train(torch, kernels, attention_mod, b3_cases, trainer,
@@ -1460,6 +1821,7 @@ def main() -> None:
          "per": "1 launch: one SLIC assignment of 4 images of 256^2 against K=529",
          "launches": launches["slic_assign"],
          "launches_rg_training": rg_launches["slic_assign"],
+         "launches_workflow": workflow_launches["slic_assign"],
          "per_rg_training": "1 launch: one SLIC assignment of 16 images of 256^2 against K=529",
          "max_abs_err": b1["max_abs_err"],
          "ms": b1_ms, "host_ms": b1_host, "plain_ms": b1_plain, "bound_ms": b1_bound[0],
@@ -1471,6 +1833,7 @@ def main() -> None:
          "launches": launches["fused_mha"] + train_launches["fused_mha"],
          "launches_inference": launches["fused_mha"],
          "launches_training": train_launches["fused_mha"],
+         "launches_workflow": workflow_launches["fused_mha"],
          "ms_training_shapes": sum(v["fused_mha_ms"] for v in b3.values()),
          "max_abs_err": b2_err,
          "ms": sum(v["ms"] for v in b2.values()),
@@ -1483,6 +1846,7 @@ def main() -> None:
          "replaces": "camouflage_multimodal_tpu/ops/pallas_attention.py:128",
          "per": "2 launches: rg2kg (4x576 q, 13 k) + kg2rg (4x13 q, 576 k), E=256, 8 heads",
          "launches": train_launches["fused_mha_bwd"], "max_abs_err": b3_err,
+         "launches_workflow": workflow_launches["fused_mha_bwd"],
          "ms": sum(v["ms"] for v in b3.values()),
          "host_ms": sum(v["host_ms"] for v in b3.values()),
          "ms_no_d_probs": sum(v["ms_no_d_probs"] for v in b3.values()),

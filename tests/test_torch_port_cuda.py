@@ -9,6 +9,8 @@ machine with an NVIDIA GPU (sm_90a) and the CUDA toolkit with
 need not have; these tests import only the port.)
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -184,7 +186,8 @@ def test_wrappers_check_inputs(dev):
 
 def test_slic_on_card_matches_cpu(dev):
     """Whole SLIC on the card vs the CPU port: raw labels ≥ 99.5 % equal
-    (center sums run in another order with atomics on the card)."""
+    (the card's Lab conversion and blur round differently; the center sums
+    run in the CPU's order)."""
     imgs = _images(dev, 2, 128, 1)
     got = S.slic(imgs, n_segments=100)[0].cpu().numpy()
     want = S.slic(imgs.cpu(), n_segments=100)[0].numpy()
@@ -471,3 +474,93 @@ def test_kg_train_step_on_card_matches_cpu(dev):
     for key, want in results["cpu"][1].items():
         torch.testing.assert_close(results["cuda"][1][key], want, rtol=1e-3, atol=1e-5,
                                    msg=lambda m: f"{key}: {m}")
+
+
+# ---------------------------------------------------------------------------
+# The workflow slice: a build that repeats to the bit, extraction, metrics
+# ---------------------------------------------------------------------------
+
+RG_CKPT = "artifacts/rg_model.ckpt"
+
+
+def test_index_sum_on_card_equals_cpu(dev):
+    """The card's fixed-order segment sum gives the CPU's ``index_add_``
+    bits on the same inputs, on every run."""
+    from camouflage_multimodal_tpu_torch.ops.regions import index_sum
+
+    g = torch.Generator().manual_seed(4)
+    vals = torch.randn(16 * 65536, 17, generator=g)
+    idx = torch.randint(0, 16 * 641, (16 * 65536,), generator=g)
+    want = index_sum(vals, idx, 16 * 641)
+    first = index_sum(vals.to(dev), idx.to(dev), 16 * 641)
+    again = index_sum(vals.to(dev), idx.to(dev), 16 * 641)
+    assert torch.equal(first, again) and torch.equal(first.cpu(), want)
+
+
+def test_graph_build_repeats_bit_equal(dev):
+    """16 images of 256² built twice on the card with the committed RG
+    weights: segments, features, adjacency, edge weights, node embeddings
+    and heatmaps equal to the bit."""
+    from camouflage_multimodal_tpu_torch.api import load_rg_model
+    from camouflage_multimodal_tpu_torch.pipeline import RegionGraphPipeline, build_region_graphs
+
+    images = torch.from_numpy(_blob_batch(16, 256, 7)["image"]).to(dev)
+    builds = [build_region_graphs(images) for _ in range(2)]
+    for name in ("segments", "features", "adjacency", "edge_weights", "node_mask"):
+        assert torch.equal(getattr(builds[0], name), getattr(builds[1], name)), name
+    pipe = RegionGraphPipeline(load_rg_model(RG_CKPT, device=dev))
+    outs = [pipe(images) for _ in range(2)]
+    for name in ("node_embeddings", "graph_embedding", "heatmap", "region_features"):
+        assert torch.equal(outs[0][name], outs[1][name]), name
+
+
+def test_extraction_on_card_matches_cpu(dev, tmp_path):
+    """``batch_extract_embeddings`` of 4 PNGs at 256², 500 segments, on the
+    card and on the CPU: segment maps ≥ 99 % equal, graph embeddings within
+    1e-2, the same names and files."""
+    from PIL import Image
+
+    from camouflage_multimodal_tpu_torch.api import load_rg_model
+    from camouflage_multimodal_tpu_torch.extract import batch_extract_embeddings
+    from camouflage_multimodal_tpu_torch.pipeline import RegionGraphPipeline
+
+    for i, img in enumerate(_blob_batch(4, 256, 8)["image"]):
+        Image.fromarray(img).save(tmp_path / f"COD10K-CAM-1-Aquatic-1-Crab-{i}.png")
+    res = {}
+    for d in ("cuda", "cpu"):
+        pipe = RegionGraphPipeline(load_rg_model(RG_CKPT, device=d))
+        kernels.reset_launches()
+        res[d] = batch_extract_embeddings(pipe, str(tmp_path), str(tmp_path / d), batch_size=4,
+                                          save_individual=True, log_fn=lambda *_: None)[0]
+        assert kernels.LAUNCHES["slic_assign"] == (10 if d == "cuda" else 0)
+    assert list(res["cuda"]) == list(res["cpu"])
+    assert sorted(os.listdir(tmp_path / "cuda")) == sorted(os.listdir(tmp_path / "cpu"))
+    for name in res["cpu"]:
+        base = os.path.splitext(name)[0]
+        with np.load(tmp_path / "cuda" / f"{base}_embedding.npz") as a, \
+                np.load(tmp_path / "cpu" / f"{base}_embedding.npz") as b:
+            assert (a["segments"] == b["segments"]).mean() >= 0.99
+        np.testing.assert_allclose(res["cuda"][name]["graph_embedding"],
+                                   res["cpu"][name]["graph_embedding"], rtol=0, atol=1e-2)
+
+
+def test_metrics_on_card_match_cpu(dev):
+    """Every metric, batch statistic and curve computed on the card within
+    1e-5 of the same functions on the CPU, confusion counts equal."""
+    from camouflage_multimodal_tpu_torch.eval import curves as C
+    from camouflage_multimodal_tpu_torch.eval import metrics as M
+
+    g = torch.Generator().manual_seed(9)
+    pred = torch.rand(8, 256, 256, generator=g)
+    gt = (torch.rand(8, 256, 256, generator=g) > 0.6).float()
+    gt[1] = 0.0
+    gt[2] = 1.0
+    pred[3] = gt[3]
+    for fn in (M.evaluate_segmentation, M.batch_evaluate, C.threshold_curves):
+        want = fn(pred, gt)
+        got = fn(pred.to(dev), gt.to(dev))
+        for key in want:
+            torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-5, atol=1e-5,
+                                       msg=lambda m: f"{fn.__name__} {key}: {m}")
+    for a, b in zip(C._confusion_curves(pred.to(dev), gt.to(dev)), C._confusion_curves(pred, gt)):
+        assert torch.equal(a.cpu(), b)

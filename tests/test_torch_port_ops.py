@@ -295,6 +295,23 @@ def test_region_features_match_jax(images, jax_stages):
     assert_features_close(compat["features"].numpy(), want)
 
 
+@pytest.mark.parametrize("rows,channels,bins", [(65536 * 2, 17, 2 * 641), (4096, 6, 529 * 4),
+                                                 (1000, 3, 7)])
+def test_index_sum_sorted_equals_index_add(rows, channels, bins):
+    """The card's fixed-order segment sum (stable sort + ``segment_reduce``)
+    run here on the CPU: equal to ``index_add_`` to the bit (both add a
+    bin's rows in row order), empty bins 0, and within float32 rounding of
+    ``jax.ops.segment_sum``."""
+    rng = np.random.default_rng(rows)
+    vals = rng.standard_normal((rows, channels)).astype(np.float32)
+    idx = rng.integers(0, bins - 1, rows)            # the last bin stays empty
+    got = T_regions.index_sum_sorted(t(vals), t(idx), bins)
+    want = T_regions.index_sum(t(vals), t(idx), bins)
+    assert torch.equal(got, want) and not got[-1].any()
+    ref = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(idx), bins))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-5)
+
+
 def test_adjacency_and_rag_weights(jax_stages):
     """Adjacency is a boolean function of the labels: exact. Weights from
     the same features: 1e-5 abs (exp/sqrt ulps)."""
