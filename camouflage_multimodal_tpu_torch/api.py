@@ -9,8 +9,8 @@ repo's ``.ckpt`` files or the reference's ``.pth`` / ``.pt``
 (:mod:`core.torch_compat`). Everything runs on ``device`` — ``"cuda"`` by
 default, which raises when no card is visible; ``"cpu"`` runs the plain
 versions. Results come back as numpy arrays, as from the JAX API. The
-figures (``save_figures=True``, ``visualize_prediction``) wait for the
-port of ``viz.py`` and raise ``NotImplementedError`` until then.
+figures (``save_figures=True``, ``visualize_prediction``) are drawn on the
+host by :mod:`viz`, which loads matplotlib only when a figure is asked for.
 """
 
 from __future__ import annotations
@@ -40,8 +40,6 @@ from camouflage_multimodal_tpu_torch.models.region_graph import RegionGraphGNN
 from camouflage_multimodal_tpu_torch.pipeline import MultimodalPipeline, RegionGraphPipeline
 
 IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp"}
-_FIGURES = ("figures are not ported yet: they wait for viz.py "
-            "(ROADMAP Queue A, the core/config, cli, viz item)")
 
 
 def classification_bands(mean_score: float) -> Tuple[str, str]:
@@ -185,24 +183,40 @@ def detect_camouflage(image_path: str, checkpoint_path: str,
     """One image through the RG pipeline → (heatmap, mean score,
     classification band, GT metrics or None). ``pipeline`` reuses a built
     one (then ``checkpoint_path`` is not read); ``paint_mapping="verbatim"``
-    reproduces the reference's off-by-one heatmaps."""
-    if save_figures:
-        raise NotImplementedError(f"detect_camouflage(save_figures=True): {_FIGURES}")
+    reproduces the reference's off-by-one heatmaps. ``save_figures`` writes
+    the 6-panel ``detection_<name>`` figure and the ``mask_<name>`` heatmap
+    into ``output_dir``."""
     if pipeline is None:
         pipeline = RegionGraphPipeline(load_rg_model(checkpoint_path, device),
                                        n_segments=n_segments, image_size=image_size,
                                        paint_mapping=paint_mapping)
     dev = pipeline_device(pipeline)
-    u8 = load_image_u8(image_path, pipeline.image_size)
-    heatmap_dev = pipeline(stages.upload(u8[None], dev))["heatmap"][0]
+    image = load_image_rgb(image_path, pipeline.image_size)
+    u8 = (image * 255.0).round().astype(np.uint8)
+    out = pipeline(stages.upload(u8[None], dev))
+    heatmap_dev = out["heatmap"][0]
     heatmap = heatmap_dev.cpu().numpy()
     mean_score = float(heatmap.mean())
-    classification, _ = classification_bands(mean_score)
+    classification, color = classification_bands(mean_score)
 
     metrics = None
     if mask_path and os.path.exists(mask_path):
         gt = torch.from_numpy(load_mask(mask_path, pipeline.image_size)).to(dev)
         metrics = {k: float(v) for k, v in evaluate_segmentation(heatmap_dev, gt).items()}
+
+    if save_figures:
+        from PIL import Image
+
+        from camouflage_multimodal_tpu_torch.viz import detection_panel
+
+        os.makedirs(output_dir, exist_ok=True)
+        base = os.path.basename(image_path)
+        coverage = float((heatmap > 0.5).sum() / heatmap.size * 100)
+        detection_panel(image, out["segments"][0].cpu().numpy(), heatmap, classification,
+                        color, mean_score, coverage,
+                        os.path.join(output_dir, f"detection_{base}"), base)
+        Image.fromarray((heatmap * 255).astype(np.uint8)).save(
+            os.path.join(output_dir, f"mask_{base}"))
     return heatmap, mean_score, classification, metrics
 
 
@@ -212,9 +226,8 @@ def test_image_directory(predictor: MultimodalPredictor, image_dir: str,
     """Every image of ``image_dir`` (sorted; the first ``max_images``)
     through ``predictor`` in batches padded to ``batch_size``; an image that
     fails to decode is reported and skipped. Writes and returns the records
-    of ``batch_results.json``."""
-    if save_figures:
-        raise NotImplementedError(f"test_image_directory(save_figures=True): {_FIGURES}")
+    of ``batch_results.json``; ``save_figures`` also writes each image's
+    8-panel ``pred_<name>`` figure."""
     files = sorted(f for f in os.listdir(image_dir)
                    if os.path.splitext(f)[1].lower() in IMAGE_EXTS)
     if max_images:
@@ -245,6 +258,21 @@ def test_image_directory(predictor: MultimodalPredictor, image_dir: str,
                 "not_camo_prob": float(prob[0]),
                 "score": float(out["score"][j, 0]),
             })
+            if save_figures:
+                from camouflage_multimodal_tpu_torch.viz import multimodal_panel
+
+                node_mask = out["node_mask"][j]
+                predictions = {
+                    "mask_prob": prob,
+                    "mask_pred": pred_label,
+                    "instance_pred": int(np.argmax(out["instance_logits"][j])),
+                    "score": float(out["score"][j, 0]),
+                    "segments": out["segments"][j],
+                }
+                attn = ({"rg2kg": out["attention"]["rg2kg"][j][node_mask]}
+                        if "attention" in out else None)
+                multimodal_panel(images[j], predictions, attn, predictor.kg_ordered,
+                                 os.path.join(output_dir, f"pred_{f}"), f)
 
     with open(os.path.join(output_dir, "batch_results.json"), "w") as f:
         json.dump(results, f, indent=2)
@@ -323,5 +351,10 @@ def evaluate_directory(checkpoint_path: str, image_dir: str, gt_dir: str,
 
 def visualize_prediction(image_path: str, predictions: Dict, attention_weights,
                          kg_categories_ordered: Dict, output_path: str) -> None:
-    """The reference's 8-panel multimodal figure."""
-    raise NotImplementedError(f"visualize_prediction: {_FIGURES}")
+    """The reference's 8-panel multimodal figure
+    (``test_multimodal.py:156-308``)."""
+    from camouflage_multimodal_tpu_torch.viz import multimodal_panel
+
+    image = load_image_rgb(image_path)
+    multimodal_panel(image, predictions, attention_weights, kg_categories_ordered,
+                     output_path, os.path.basename(image_path))

@@ -6,15 +6,20 @@
     python3 chip_smoke.py --rg-lr-probe
     python3 chip_smoke.py --build-cost
 
-Five paths of the port are driven: multimodal inference
+Six paths of the port are driven: multimodal inference
 (``MultimodalPredictor``), fusion training (``FusionTrainer``),
 region-graph training (``RGTrainer``), knowledge-graph training with its
-embedding factory (``KGTrainer``) and the workflow that joins them
+embedding factory (``KGTrainer``), the workflow that joins them
 (extraction → matched fusion dataset → fusion epoch, directory evaluation
-and directory testing).
+and directory testing) and serving through the CLI (``InferenceService``
+behind ``make_server``, ``cli serve`` and six more subcommands).
 
 Phases, each failing the run (nonzero exit, no result line) when it fails:
 
+0. the versions of the host packages PIL, matplotlib and PyYAML (``null``
+   for a missing one); the figure and config steps of phase 9c run only
+   where their package is present, and a skipped step prints a line of its
+   own;
 1. build every CUDA kernel of ``camouflage_multimodal_tpu_torch/csrc`` with
    nvcc (one process per source, all started together);
 2. kernel B1 ``slic_assign`` against its plain PyTorch version at the main
@@ -29,7 +34,8 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
 3. kernel B2 ``fused_mha`` against its plain version with the committed
    fusion weights in both directions of the main path (4 × 640 queries ×
    13 keys and 4 × 13 queries × 640 keys, partial key masks), the same at
-   batch 8 as directory testing calls it, at the training shapes (576) and on a ragged case (37 queries × 75 keys, one
+   batch 8 as directory testing calls it and at batches 1 and 2 (the
+   serving buckets below 4), at the training shapes (576) and on a ragged case (37 queries × 75 keys, one
    batch row with every key masked): out within rtol/atol 1e-4,
    probabilities within rtol 1e-3 / atol 2e-3, a repeat bit-equal, and
    what it keeps for B3 (projected q, k, v, the context, the split pass's
@@ -121,6 +127,28 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    evaluated at batch 16 with the four-stage overlap and with the stages
    run one after another, in turns, and the images per second of each run
    are printed with the serial runs' seconds per stage;
+9b. serving: B1 against its plain version at buckets 1 and 2 (seed and
+   fifth-iteration centers: labels equal); ``InferenceService`` over the
+   committed weights at batch 8 and 5 ms wait, warmed (every bucket run
+   once before the batcher drains), behind ``make_server`` on port 0; 64
+   seeded 256² PNGs from 16 client threads (every fourth with
+   ``?heatmap=1``). Launch counters zeroed just before the burst and read
+   just after: B1 exactly 10 and B2 2 per batch, B3 never. Then 8
+   sequential requests, which must each run at bucket 1. Every response
+   has the JAX keys; its ints and band equal, and its floats within 1e-5
+   of, ``predict_batch`` on its image alone (after the server is closed),
+   its heatmap PNG within one level. Prints /stats (requests, batches,
+   occupancy, p50 / p95), the burst's requests per second, the
+   sequential p50 and ``predict_batch``'s own ms at each bucket. Then ``python -m camouflage_multimodal_tpu_torch.cli
+   serve`` as a subprocess: /healthz polled until its warmup ends, 4 PNGs
+   answered as in-process (same bars), start-up seconds printed;
+9c. the CLI in-process (``cli.main``): ``detect`` (figures, where
+   matplotlib is present; else ``api.detect_camouflage(save_figures=False)``),
+   ``test-multimodal --image-dir`` and ``evaluate`` on 32 files of the
+   workflow's kind, ``ingest-kg``, ``train-kg`` (one epoch) and
+   ``extract-kg`` on phase 8's synthetic annotations: seconds and files of
+   each, the files checked; ``load_config`` of the committed YAML (where
+   PyYAML is present);
 10. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel
    (B1 at each pixel-tile shape), the host time to enqueue one call, its
    plain version, ``torch.nn.functional.multi_head_attention_forward``
@@ -152,7 +180,7 @@ runs over how far the CPU's moved, and the entries furthest apart: their
 difference, how far each device moved them from the initial weights, and
 Adam's moments there on each device; then stops.
 
-Prints JSON lines per phase, then the card's name and power limit, the
+Prints JSON lines per phase and the script's total seconds, then the card's name and power limit, the
 kernel table line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. TF32 is disabled for
 matmuls and cuDNN: every reference number is float32.
@@ -181,10 +209,13 @@ TRAIN_RECORDS = 64
 TRAIN_EPOCHS = 2
 GRAD_NAMES = ("d_q", "d_k", "d_v", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
 # (name, batch, queries, keys) of B2's checks: both directions at the
-# inference bucket (batch 4, and batch 8 as directory testing calls it) and
-# at the training bucket, and a ragged case.
+# inference bucket (batch 4, batch 8 as directory testing calls it, and
+# batches 1 and 2, the serving buckets below 4) and at the training bucket,
+# and a ragged case.
 B2_SHAPES = (("rg2kg", BATCH, 640, 13), ("kg2rg", BATCH, 13, 640),
              ("rg2kg_b8", 8, 640, 13), ("kg2rg_b8", 8, 13, 640),
+             ("rg2kg_b1", 1, 640, 13), ("kg2rg_b1", 1, 13, 640),
+             ("rg2kg_b2", 2, 640, 13), ("kg2rg_b2", 2, 13, 640),
              ("rg2kg_576", BATCH, TRAIN_NODES, 13), ("kg2rg_576", BATCH, 13, TRAIN_NODES),
              ("ragged_37x75", BATCH, 37, 75))
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 on the CUDA
@@ -1311,6 +1342,367 @@ def phase_overlap(torch, np, api, out_dir):
                   "each stage; evaluation loads its checkpoint in every run"})
 
 
+# ---------------------------------------------------------------------------
+# Serving and the CLI
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH = 8            # MicroBatcher buckets 1, 2, 4, 8
+SERVE_WAIT_MS = 5.0
+SERVE_REQUESTS = 64
+SERVE_CLIENTS = 16
+SERVE_SEQUENTIAL = 8
+CLI_SERVE_REQUESTS = 4
+CONFIG = "configs/multimodal_config.yaml"
+
+
+def phase_host_packages():
+    """Versions of the host packages the figures (matplotlib), ``--config``
+    (PyYAML) and decoding (PIL) need; ``None`` for a missing one."""
+    import importlib
+
+    versions = {}
+    for name, module in (("PIL", "PIL"), ("matplotlib", "matplotlib"), ("PyYAML", "yaml")):
+        try:
+            versions[name] = importlib.import_module(module).__version__
+        except ImportError:
+            versions[name] = None
+    emit({"phase": "host_packages", "versions": versions})
+    if versions["PIL"] is None:
+        fail("PIL is missing: the serving path decodes images with it")
+    return versions
+
+
+def skipped(step, package):
+    emit({"phase": "skipped", "step": step, "reason": f"{package} is not installed"})
+
+
+def png_bytes(image) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def post(url, body, timeout=120):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def get(url, timeout=10):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def percentile_ms(seconds, q):
+    s = sorted(seconds)
+    return 1e3 * s[min(int(len(s) * q), len(s) - 1)]
+
+
+def response_diffs(np, got, want):
+    """(fields whose ints or band differ, largest float difference) of two
+    ``/predict`` responses."""
+    bad = [k for k in ("mask_pred", "instance_pred", "classification") if got[k] != want[k]]
+    if "latency_ms" not in got or set(got) - {"latency_ms"} != set(want) - {"latency_ms"}:
+        bad.append("keys")
+    err = max(float(np.abs(np.subtract(got[k], want[k])).max())
+              for k in ("mask_prob", "edge_prob", "score"))
+    return bad, err
+
+
+def phase_serve(torch, np, kernels, api, slic_mod):
+    """The serving path in-process: B1 first held to its plain version at
+    buckets 1 and 2; ``InferenceService`` over the committed weights at batch 8 and
+    5 ms wait, warmed, behind ``make_server`` on port 0; 64 seeded PNGs from
+    16 client threads (every fourth with ``?heatmap=1``), then 8 sequential
+    requests; every response against ``predict_batch`` of its image alone,
+    run after the server is closed. Times ``predict_batch`` alone at each
+    bucket first. Returns (the burst's launches, the responses by image
+    index, the images)."""
+    import base64
+    import io
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from camouflage_multimodal_tpu_torch.serve import InferenceService, make_server
+
+    images = synthetic_images(300, SERVE_REQUESTS + SERVE_SEQUENTIAL, SIZE)
+    for b in (1, 2):                               # the buckets below 4
+        check_slic_batch(torch, slic_mod, images[:b], "serve")
+    bodies = [png_bytes(img) for img in images]
+    predictor = api.MultimodalPredictor(*ARTIFACTS, device="cuda")
+    service = InferenceService(predictor, batch_size=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS)
+    if not np.array_equal(service.decode(bodies[0]), images[0]):
+        fail("the service does not decode a 256² PNG losslessly")
+    t0 = time.perf_counter()
+    service.warmup()
+    warmup_s = time.perf_counter() - t0
+    bucket_ms = {}                                 # predict_batch alone, median of 3
+    for b in service.batcher.buckets:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            predictor.predict_batch(images[:b])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        bucket_ms[str(b)] = sorted(times)[1]
+    buckets = []                                   # batch size of every predictor call
+    predict = service.batcher.predict_fn
+
+    def recorded(batch):
+        buckets.append(int(batch.shape[0]))
+        return predict(batch)
+
+    service.batcher.predict_fn = recorded
+    server = make_server(service, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    responses = {}
+    try:
+        before = get(url + "/stats")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+
+        def ask(i):
+            t = time.perf_counter()
+            resp = post(url + ("/predict?heatmap=1" if i % 4 == 0 else "/predict"), bodies[i])
+            return i, resp, time.perf_counter() - t
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            burst = list(pool.map(ask, range(SERVE_REQUESTS)))
+        burst_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        after = get(url + "/stats")
+        burst_buckets = list(buckets)
+        sequential = [ask(i) for i in range(SERVE_REQUESTS, SERVE_REQUESTS + SERVE_SEQUENTIAL)]
+        final = get(url + "/stats")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+    for i, resp, _ in burst + sequential:
+        responses[i] = resp
+    batches = after["batches"] - before["batches"]
+    emit({"phase": "serve_burst", "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
+          "batch_size": SERVE_BATCH, "max_wait_ms": SERVE_WAIT_MS, "warmup_seconds": warmup_s,
+          "predict_batch_ms_by_bucket": bucket_ms,
+          "stats": after, "burst_batches": batches,
+          "burst_mean_occupancy": (after["requests"] - before["requests"]) / max(batches, 1),
+          "buckets_run": {str(b): burst_buckets.count(b) for b in sorted(set(burst_buckets))},
+          "requests_per_second": SERVE_REQUESTS / burst_s,
+          "client_p50_ms": percentile_ms([s for _, _, s in burst], 0.5),
+          "client_p95_ms": percentile_ms([s for _, _, s in burst], 0.95),
+          "launches": launches,
+          "note": "/stats latencies are submit to result inside the server, over every request "
+                  "since warmup (its one request included); client times are the HTTP round trip"})
+    want = {"slic_assign": SLIC_ITERS * batches, "fused_mha": 2 * batches, "fused_mha_bwd": 0}
+    if launches != want:
+        fail(f"the serving burst launched {launches}, expected {want} for {batches} batches")
+    if (after["requests"] - before["requests"] != SERVE_REQUESTS or len(burst_buckets) != batches
+            or sum(burst_buckets) < SERVE_REQUESTS):
+        fail(f"the burst answered {after['requests'] - before['requests']} requests")
+    seq_buckets = buckets[len(burst_buckets):]
+    emit({"phase": "serve_sequential", "requests": SERVE_SEQUENTIAL, "buckets_run": seq_buckets,
+          "client_p50_ms": percentile_ms([s for _, _, s in sequential], 0.5),
+          "server_p50_ms": percentile_ms([r["latency_ms"] / 1e3 for _, r, _ in sequential], 0.5),
+          "stats": final})
+    if seq_buckets != [1] * SERVE_SEQUENTIAL:
+        fail(f"sequential single requests ran at buckets {seq_buckets}, expected bucket 1")
+
+    worst, bad_ints, heat_levels = 0.0, [], 0
+    for i, resp in sorted(responses.items()):
+        alone = predictor.predict_batch(images[i:i + 1])
+        heatmap = alone["heatmap"][0]
+        band, _ = api.classification_bands(float(heatmap.mean()))
+        want_resp = {"mask_pred": int(np.argmax(alone["mask_logits"][0])),
+                     "mask_prob": [float(p) for p in alone["mask_prob"][0]],
+                     "instance_pred": int(np.argmax(alone["instance_logits"][0])),
+                     "edge_prob": float(alone["edge_prob"][0, 0]),
+                     "score": float(alone["score"][0, 0]), "classification": band}
+        if "heatmap_png_base64" in resp:
+            got = np.asarray(Image.open(io.BytesIO(base64.b64decode(resp["heatmap_png_base64"]))),
+                             np.int32)
+            heat_levels = max(heat_levels, int(np.abs(
+                got - np.clip(heatmap * 255.0, 0, 255).astype(np.int32)).max()))
+            want_resp["heatmap_png_base64"] = None
+        bad, err = response_diffs(np, resp, want_resp)
+        worst = max(worst, err)
+        if bad:
+            bad_ints.append((i, bad))
+    emit({"phase": "serve_vs_alone", "responses": len(responses),
+          "mismatched_ints_or_band": bad_ints, "max_abs_diff_floats": worst,
+          "heatmap_png_max_level_diff": heat_levels})
+    if bad_ints or worst > 1e-5 or heat_levels > 1 or len(responses) != len(images):
+        fail(f"served responses disagree with predict_batch alone: {bad_ints}, floats {worst}, "
+             f"heatmap levels {heat_levels}")
+    return launches, responses, images
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_cli_serve(np, served, images):
+    """``python -m camouflage_multimodal_tpu_torch.cli serve`` as a
+    subprocess on the committed weights: /healthz polled until warmup ends,
+    4 PNGs posted and compared with the in-process responses."""
+    import signal
+    import urllib.error
+
+    port = free_port()
+    cmd = [sys.executable, "-m", "camouflage_multimodal_tpu_torch.cli", "serve",
+           "--checkpoint", ARTIFACTS[0], "--rg-model", ARTIFACTS[1], "--kg-embeddings", ARTIFACTS[2],
+           "--host", "127.0.0.1", "--port", str(port), "--device", "cuda"]
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"cli serve exited with {proc.returncode}: {proc.stdout.read()[-2000:]}")
+            if time.perf_counter() - t0 > 300:
+                fail("cli serve did not answer /healthz within 300 s")
+            try:
+                health = get(url + "/healthz", timeout=2)
+                break
+            except (urllib.error.URLError, ConnectionError, OSError):
+                time.sleep(0.25)
+        startup_s = time.perf_counter() - t0
+        worst, bad_ints = 0.0, []
+        for i in range(CLI_SERVE_REQUESTS):
+            resp = post(url + "/predict", png_bytes(images[i]))
+            want = {k: v for k, v in served[i].items() if k != "heatmap_png_base64"}
+            bad, err = response_diffs(np, resp, want)
+            worst = max(worst, err)
+            if bad:
+                bad_ints.append((i, bad))
+        stats = get(url + "/stats")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+        try:
+            log, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+    emit({"phase": "cli_serve", "command": " ".join(cmd[1:]), "startup_seconds": startup_s,
+          "health": health, "stats": stats, "responses": CLI_SERVE_REQUESTS,
+          "mismatched_ints_or_band": bad_ints, "max_abs_diff_floats_vs_in_process": worst,
+          "exit_code": proc.returncode, "log": log.strip().splitlines()[-3:]})
+    if bad_ints or worst > 1e-5 or stats["requests"] < CLI_SERVE_REQUESTS:
+        fail(f"cli serve answers differ from the in-process service: {bad_ints}, floats {worst}")
+    if health.get("backend") != "cuda":
+        fail(f"cli serve reports backend {health.get('backend')}, not cuda")
+
+
+def phase_cli(torch, np, cli, packages, out_dir):
+    """The CLI in-process through ``cli.main``: ``detect``,
+    ``test-multimodal --image-dir`` and ``evaluate`` on the workflow's 32
+    files, then ``ingest-kg``, ``train-kg`` and ``extract-kg`` at one epoch
+    on the KG phase's synthetic annotations; seconds and files of each."""
+    import contextlib
+    import io
+
+    from camouflage_multimodal_tpu_torch import api
+
+    root = os.path.join(out_dir, "cli")
+    dirs, names = write_workflow_dataset(np, os.path.join(root, "data"))
+    annot = os.path.join(root, "annotations")
+    os.makedirs(annot)
+    with np.load(ARTIFACTS[2]) as z:
+        categories = list(z.files)
+    for name, obj in synthetic_annotations(np, categories, KG_PER_CATEGORY):
+        with open(os.path.join(annot, name), "w") as f:
+            json.dump(obj, f)
+    image, mask = os.path.join(dirs["images"], names[0]), os.path.join(
+        dirs["gt_object"], names[0][:-4] + ".png")
+    out = {k: os.path.join(root, k) for k in ("detect", "test", "kg")}
+    steps = [
+        ("detect", ["detect", "--image", image, "--model", ARTIFACTS[1], "--mask", mask,
+                    "--output", out["detect"], "--device", "cuda"],
+         [os.path.join(out["detect"], f"{p}_{names[0]}") for p in ("detection", "mask")]),
+        ("test-multimodal", ["test-multimodal", "--checkpoint", ARTIFACTS[0], "--rg-model",
+                             ARTIFACTS[1], "--kg-embeddings", ARTIFACTS[2], "--image-dir",
+                             dirs["images"], "--output", out["test"], "--device", "cuda"],
+         [os.path.join(out["test"], "batch_results.json")]),
+        ("evaluate", ["evaluate", "--model", ARTIFACTS[1], "--image-dir", dirs["images"],
+                      "--gt-dir", dirs["gt_object"], "--device", "cuda"], []),
+        ("ingest-kg", ["ingest-kg", "--annotations", annot, "--output",
+                       os.path.join(out["kg"], "kg_store.json"), "--processed-log",
+                       os.path.join(out["kg"], "processed.txt")],
+         [os.path.join(out["kg"], f) for f in ("kg_store.json", "processed.txt")]),
+        ("train-kg", ["train-kg", "--store", os.path.join(out["kg"], "kg_store.json"),
+                      "--epochs", "1", "--output", os.path.join(out["kg"], "kg.ckpt"),
+                      "--device", "cuda"], [os.path.join(out["kg"], "kg.ckpt")]),
+        ("extract-kg", ["extract-kg", "--model", os.path.join(out["kg"], "kg.ckpt"), "--store",
+                        os.path.join(out["kg"], "kg_store.json"), "--output",
+                        os.path.join(out["kg"], "emb"), "--device", "cuda"],
+         [os.path.join(out["kg"], "emb", f) for f in
+          ("all_embeddings.npz", "embedding_stats.json", "summary.json")]),
+    ]
+    os.makedirs(out["kg"])
+    for what, argv, files in steps:
+        if what == "detect" and packages["matplotlib"] is None:
+            skipped("cli detect figures: api.detect_camouflage(save_figures=False) instead",
+                    "matplotlib")
+            t0 = time.perf_counter()
+            _, mean_score, band, _ = api.detect_camouflage(image, ARTIFACTS[1], out["detect"], mask,
+                                                           save_figures=False, device="cuda")
+            torch.cuda.synchronize()
+            emit({"phase": "cli", "command": "api.detect_camouflage(save_figures=False)",
+                  "seconds": time.perf_counter() - t0, "mean_score": mean_score, "band": band})
+            continue
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        lines = printed.getvalue().strip().splitlines()
+        missing = [f for f in files if not os.path.exists(f)]
+        emit({"phase": "cli", "command": what, "seconds": seconds,
+              "files": [os.path.relpath(f, root) for f in files], "missing": missing,
+              "printed": lines[-3:] if what != "evaluate" else None})
+        if missing:
+            fail(f"cli {what} did not write {missing}")
+        if what == "evaluate":
+            report = json.loads(printed.getvalue())
+            if not all(np.isfinite(v) for v in report.values()):
+                fail(f"cli evaluate printed non-finite metrics: {report}")
+        if what == "test-multimodal":
+            with open(files[0]) as f:
+                if len(json.load(f)) != WORKFLOW_IMAGES:
+                    fail("cli test-multimodal did not test every image")
+
+    if packages["PyYAML"] is None:
+        skipped(f"load_config({CONFIG})", "PyYAML")
+        return
+    from camouflage_multimodal_tpu_torch.core.config import default_config, load_config
+
+    cfg = load_config(CONFIG)
+    emit({"phase": "config", "path": CONFIG, "model": cfg["model"],
+          "differs_from_defaults": sorted(k for k, v in cfg.items() if default_config()[k] != v)})
+    if cfg["model"]["hidden_dim"] != 256 or cfg["checkpoint_dir"] != "checkpoints":
+        fail(f"{CONFIG} did not load over the defaults")
+
+
 def build_cost(torch, np, api, reps: int = 5):
     """``--build-cost``: ms per RG graph build of 16 images and per
     inference batch of 4 at 256², three rounds of each; runs on any
@@ -1754,6 +2146,7 @@ def main() -> None:
                     help="time the RG graph build of 16 and an inference batch of 4 and stop")
     args = ap.parse_args()
     trace = os.path.abspath(args.profile) if args.profile else None
+    t_start = time.perf_counter()
 
     import numpy as np
     import torch
@@ -1766,6 +2159,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     try:
         from camouflage_multimodal_tpu_torch import api
+        from camouflage_multimodal_tpu_torch import cli as cli_mod
         from camouflage_multimodal_tpu_torch.core import kernels
         from camouflage_multimodal_tpu_torch.ops import attention as attention_mod
         from camouflage_multimodal_tpu_torch.ops import slic as slic_mod
@@ -1789,6 +2183,7 @@ def main() -> None:
         fusion_model, _ = api.load_multimodal_model(ARTIFACTS[0], device="cuda")
         b2_digest(torch, attention_mod, fusion_model)
         return
+    packages = phase_host_packages()
     phase_build(kernels)
     b1 = phase_slic_assign(torch, slic_mod, synthetic_images(7, BATCH, SIZE))
     fusion_model, _ = api.load_multimodal_model(ARTIFACTS[0], device="cuda")
@@ -1802,6 +2197,9 @@ def main() -> None:
         kg_trainer, kg_subgraphs = phase_train_kg(torch, np, kernels, api, out_dir)
         _, workflow_launches = phase_workflow(torch, np, kernels, api, out_dir)
         phase_overlap(torch, np, api, out_dir)
+        serve_launches, served, serve_images = phase_serve(torch, np, kernels, api, slic_mod)
+        phase_cli_serve(np, served, serve_images)
+        phase_cli(torch, np, cli_mod, packages, out_dir)
     (b1_ms, b1_host, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
         torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches, trace)
     b3, b3_bound = phase_times_train(torch, kernels, attention_mod, b3_cases, trainer,
@@ -1809,6 +2207,7 @@ def main() -> None:
     phase_times_graph_training(torch, np, rg_trainer, rg_ds, kg_trainer, kg_subgraphs,
                                bool(trace))
 
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     if smi.returncode != 0:
@@ -1822,6 +2221,7 @@ def main() -> None:
          "launches": launches["slic_assign"],
          "launches_rg_training": rg_launches["slic_assign"],
          "launches_workflow": workflow_launches["slic_assign"],
+         "launches_serving": serve_launches["slic_assign"],
          "per_rg_training": "1 launch: one SLIC assignment of 16 images of 256^2 against K=529",
          "max_abs_err": b1["max_abs_err"],
          "ms": b1_ms, "host_ms": b1_host, "plain_ms": b1_plain, "bound_ms": b1_bound[0],
@@ -1834,6 +2234,7 @@ def main() -> None:
          "launches_inference": launches["fused_mha"],
          "launches_training": train_launches["fused_mha"],
          "launches_workflow": workflow_launches["fused_mha"],
+         "launches_serving": serve_launches["fused_mha"],
          "ms_training_shapes": sum(v["fused_mha_ms"] for v in b3.values()),
          "max_abs_err": b2_err,
          "ms": sum(v["ms"] for v in b2.values()),
@@ -1847,6 +2248,7 @@ def main() -> None:
          "per": "2 launches: rg2kg (4x576 q, 13 k) + kg2rg (4x13 q, 576 k), E=256, 8 heads",
          "launches": train_launches["fused_mha_bwd"], "max_abs_err": b3_err,
          "launches_workflow": workflow_launches["fused_mha_bwd"],
+         "launches_serving": serve_launches["fused_mha_bwd"],
          "ms": sum(v["ms"] for v in b3.values()),
          "host_ms": sum(v["host_ms"] for v in b3.values()),
          "ms_no_d_probs": sum(v["ms_no_d_probs"] for v in b3.values()),

@@ -38,6 +38,19 @@ PROB_TOL = dict(rtol=1e-3, atol=2e-3)    # attention maps (tests/test_pallas.py:
 GNN_TOL = dict(rtol=2e-4, atol=2e-5)     # RG outputs (tests/test_torch_compat.py:34)
 
 
+@pytest.fixture(scope="module")
+def few_threads():
+    """Two intra-op threads while a module runs (modules ask for it with
+    ``pytest.mark.usefixtures``): the suite runs a file per worker, and 8
+    threads in each of 6 workers on 8 cores wait on each other — the three
+    serving, CLI and figure files took 595 s instead of 2,192 in a 6-worker
+    run with it, and the files beside them half their time."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def synthetic_images(seed: int, n: int, size: int) -> np.ndarray:
     """(n, size, size, 3) uint8: smooth colour blobs + a sine texture + noise."""
     rng = np.random.default_rng(seed)

@@ -567,8 +567,9 @@ def test_test_image_directory_matches_jax(tmp_path, fusion):
         assert (g["prediction"], g["pred_label"]) == (w["prediction"], w["pred_label"])
         for k in ("camo_prob", "not_camo_prob", "score"):
             assert g[k] == pytest.approx(w[k], rel=OUT_TOL["rtol"], abs=OUT_TOL["atol"]), k
-    with pytest.raises(NotImplementedError, match="viz"):
-        T_api.test_image_directory(tpred, str(img_dir), str(tmp_path / "f"), save_figures=True)
+    T_api.test_image_directory(tpred, str(img_dir), str(tmp_path / "f"), max_images=1,
+                               batch_size=1, save_figures=True)
+    assert sorted(os.listdir(tmp_path / "f")) == ["batch_results.json", f"pred_{names[0]}"]
 
 
 def test_late_fusion_predictor_matches_jax(tmp_path):
@@ -603,7 +604,7 @@ def test_late_fusion_predictor_matches_jax(tmp_path):
 def test_detect_camouflage_matches_jax(tmp_path):
     """One seeded 128² image with a GT disc, 100 segments, both paint
     mappings: the heatmap at the GNN bar where segments agree, the same
-    band, metrics within 1e-5; figures raise until viz is ported."""
+    band, metrics within 1e-5; the figures under the JAX file names."""
     img_dir, gt_dir, names = _write_dataset(tmp_path, 1, 128)
     image, mask = str(img_dir / names[0]), str(gt_dir / names[0])
     for mapping in ("corrected", "verbatim"):
@@ -621,7 +622,10 @@ def test_detect_camouflage_matches_jax(tmp_path):
     assert none is None
     assert [T_api.classification_bands(s) for s in (0.4, 0.3, 0.15, 0.05)] == \
         [J_api.classification_bands(s) for s in (0.4, 0.3, 0.15, 0.05)]
-    with pytest.raises(NotImplementedError, match="viz"):
-        T_api.detect_camouflage(image, ARTIFACTS[1], device="cpu")
-    with pytest.raises(NotImplementedError, match="viz"):
-        T_api.visualize_prediction(image, {}, None, {}, str(tmp_path / "v.png"))
+    T_api.detect_camouflage(image, ARTIFACTS[1], str(tmp_path / "figs"), n_segments=100,
+                            image_size=128, device="cpu")
+    assert sorted(os.listdir(tmp_path / "figs")) == [f"detection_{names[0]}", f"mask_{names[0]}"]
+    predictions = {"segments": np.zeros((128, 128), np.int32), "mask_prob": np.array([0.6, 0.4]),
+                   "mask_pred": 0, "instance_pred": 0, "score": 0.3}
+    T_api.visualize_prediction(image, predictions, None, {}, str(tmp_path / "v.png"))
+    assert os.path.getsize(tmp_path / "v.png") > 1000
