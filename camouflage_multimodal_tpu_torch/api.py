@@ -37,6 +37,9 @@ from camouflage_multimodal_tpu_torch.models.fusion import (
     MultimodalCamouflageDetector, build_multimodal_model)
 from camouflage_multimodal_tpu_torch.models.knowledge_graph import KnowledgeGraphGNN
 from camouflage_multimodal_tpu_torch.models.region_graph import RegionGraphGNN
+from camouflage_multimodal_tpu_torch.parallel.distributed import process_count
+from camouflage_multimodal_tpu_torch.parallel.sharding import (
+    block, data_group, make_mesh, scatter_rows)
 from camouflage_multimodal_tpu_torch.pipeline import MultimodalPipeline, RegionGraphPipeline
 
 IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp"}
@@ -299,13 +302,25 @@ def evaluate_directory(checkpoint_path: str, image_dir: str, gt_dir: str,
     ``feature_norm=256`` runs the reference's /256 position normalization
     for reference-recipe weights at other sizes. Decode ∥ upload ∥ compute
     ∥ download overlap as in :mod:`extract`; every batch is padded to
-    ``batch_size``. ``data_parallel=True`` on more than one card is not
-    ported yet and raises; otherwise one card runs it all."""
+    ``batch_size``.
+
+    ``data_parallel`` spreads every padded batch over the ranks of the
+    process group (:mod:`parallel.distributed`): each rank decodes and runs
+    its block, and the heatmaps and masks are gathered, so every rank
+    computes the report one rank would. ``None`` turns it on
+    when more than one process is up and ``batch_size`` divides over them;
+    ``True`` with a batch that does not divide raises."""
     dev = resolve_device(device)
-    if data_parallel and dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "data_parallel evaluation over several cards is not ported yet: "
-            "ROADMAP Queue A, the parallel/ item")
+    world = process_count()
+    if data_parallel is None:
+        data_parallel = world > 1 and batch_size % world == 0
+    group = None
+    if data_parallel and world > 1:
+        if batch_size % world:
+            raise ValueError(
+                f"data_parallel eval needs batch_size divisible by the "
+                f"process count: batch_size={batch_size}, processes={world}")
+        group = data_group(make_mesh(dev))
     pipeline = RegionGraphPipeline(load_rg_model(checkpoint_path, dev),
                                    n_segments=n_segments, image_size=image_size,
                                    feature_norm=feature_norm)
@@ -316,11 +331,21 @@ def evaluate_directory(checkpoint_path: str, image_dir: str, gt_dir: str,
     if max_images:
         files = files[:max_images]
     size = pipeline.image_size
+    mine = block(batch_size, group)          # this rank's rows of every padded batch
 
-    def decode(chunk):
-        """(uint8 images, float masks) of the chunk's GT-paired files."""
+    def paired(chunk):
         pairs = [(f, os.path.join(gt_dir, os.path.splitext(f)[0] + ".png")) for f in chunk]
-        pairs = [(f, g) for f, g in pairs if os.path.exists(g)]
+        return [(f, g) for f, g in pairs if os.path.exists(g)]
+
+    chunks = [paired(files[i: i + batch_size]) for i in range(0, len(files), batch_size)]
+    starts = np.cumsum([0] + [len(c) for c in chunks])
+    # The global index of every image this rank evaluates, in order.
+    rows = [i for c, start in zip(chunks, starts)
+            for i in range(start, start + len(c))[mine]]
+
+    def decode(pairs):
+        """(uint8 images, float masks) of this rank's GT-paired files."""
+        pairs = pairs[mine]
         return ([load_image_u8(os.path.join(image_dir, f), size) for f, _ in pairs],
                 [load_mask(g, size) for _, g in pairs])
 
@@ -328,7 +353,7 @@ def evaluate_directory(checkpoint_path: str, image_dir: str, gt_dir: str,
         images, masks = decoded
         if not images:
             return None, masks
-        return stages.upload(stages.pad_batch(images, batch_size), dev), masks
+        return stages.upload(stages.pad_batch(images, mine.stop - mine.start), dev), masks
 
     heatmaps, gts = [], []
 
@@ -339,11 +364,13 @@ def evaluate_directory(checkpoint_path: str, image_dir: str, gt_dir: str,
         gts.append(np.stack(masks))
         return pipeline(batch)["heatmap"][:len(masks)]
 
-    chunks = [files[i: i + batch_size] for i in range(0, len(files), batch_size)]
     stages.run_overlapped(chunks, decode, upload, compute, lambda h: h.cpu().numpy(),
                           heatmaps.append)
-    preds = torch.from_numpy(np.concatenate(heatmaps)).to(dev)
-    gt = torch.from_numpy(np.concatenate(gts)).to(dev)
+    # Every rank's heatmaps and masks at their global rows, on every rank.
+    idx = torch.tensor(rows, dtype=torch.long, device=dev)
+    preds, gt = (scatter_rows(torch.from_numpy(np.concatenate(parts) if parts else
+                                               np.zeros((0, size, size), np.float32)).to(dev),
+                              idx, int(starts[-1]), group) for parts in (heatmaps, gts))
     report = {k: float(v) for k, v in batch_evaluate(preds, gt, threshold).items()}
     report.update({k: float(v) for k, v in batch_curve_metrics(preds, gt).items()})
     return report

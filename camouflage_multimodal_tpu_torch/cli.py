@@ -16,11 +16,16 @@ runs the plain PyTorch versions) on every subcommand that runs a model.
 
 ``--config`` files need PyYAML and the figures of ``detect`` and
 ``test-multimodal`` need matplotlib; both are loaded only when used.
+``--data-parallel`` on ``train-rg`` and ``train-fusion`` trains over the
+ranks of the launcher's process group, one process per card::
+
+    torchrun --nproc-per-node N -m camouflage_multimodal_tpu_torch.cli train-rg ... --data-parallel
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -37,14 +42,31 @@ def _add_device(p):
 
 def _add_data_parallel(p):
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard the batch axis over all local devices "
-                        "(not ported yet: raises NotImplementedError)")
+                   help="shard the batch axis over the ranks of the process group "
+                        "(one process per card under torchrun; a world of 1 "
+                        "without a launcher); batch size must divide")
 
 
-def _refuse_data_parallel(args):
-    if getattr(args, "data_parallel", False):
-        raise NotImplementedError(
-            "--data-parallel is not ported yet: ROADMAP Queue A, the parallel/ item")
+@contextlib.contextmanager
+def _maybe_mesh(args):
+    """The ``--data-parallel`` mesh (None without the flag): joins the
+    launcher's process group, lays a (data, model=1) mesh over it, prints
+    the JAX CLI's line and tears the group down when the command ends."""
+    if not getattr(args, "data_parallel", False):
+        yield None
+        return
+    from camouflage_multimodal_tpu_torch.core.device import resolve_device
+    from camouflage_multimodal_tpu_torch.parallel import distributed
+    from camouflage_multimodal_tpu_torch.parallel.sharding import make_mesh, mesh_shape
+
+    device = resolve_device(args.device)
+    distributed.initialize(device=device.type)
+    try:
+        mesh = make_mesh(device, model_axis=1)
+        print(f"data-parallel over {mesh.size()} device(s): mesh {mesh_shape(mesh)}")
+        yield mesh
+    finally:
+        distributed.shutdown()
 
 
 def cmd_train_rg(args):
@@ -52,7 +74,6 @@ def cmd_train_rg(args):
     from camouflage_multimodal_tpu_torch.data.cod10k import CODDataset
     from camouflage_multimodal_tpu_torch.train.train_rg import RGTrainer
 
-    _refuse_data_parallel(args)
     cfg = load_config(args.config)
     ds = CODDataset(args.image_dir or cfg["image_dir"],
                     args.mask_dir or cfg["mask_dir"],
@@ -63,11 +84,12 @@ def cmd_train_rg(args):
     trainer = RGTrainer(n_segments=cfg["rg"]["n_segments"],
                         max_nodes=cfg["rg"]["max_nodes"],
                         learning_rate=args.lr, weight_decay=1e-4)
-    trainer.fit(ds, epochs=args.epochs, batch_size=args.batch_size,
-                train_split=cfg["train_split"], seed=cfg["seed"],
-                checkpoint_path=args.output,
-                resume_from=args.resume_from, resume_path=args.resume_path,
-                device=args.device)
+    with _maybe_mesh(args) as mesh:
+        trainer.fit(ds, epochs=args.epochs, batch_size=args.batch_size,
+                    train_split=cfg["train_split"], seed=cfg["seed"],
+                    checkpoint_path=args.output,
+                    resume_from=args.resume_from, resume_path=args.resume_path,
+                    mesh=mesh, device=args.device)
 
 
 def cmd_extract_rg(args):
@@ -148,7 +170,6 @@ def cmd_train_fusion(args):
     from camouflage_multimodal_tpu_torch.data.matcher import EmbeddingMatcher
     from camouflage_multimodal_tpu_torch.train.train_fusion import FusionDataset, FusionTrainer
 
-    _refuse_data_parallel(args)
     cfg = load_config(args.config)
     matcher = EmbeddingMatcher(cfg["rg_embeddings_path"], cfg["kg_embeddings_path"])
     matched = matcher.create_matched_dataset(cfg["use_all_kg_categories"])
@@ -164,12 +185,13 @@ def cmd_train_fusion(args):
     # The JAX ``use_scan`` epochs (``_fit_scan``: the padded dataset on the
     # device, batches gathered there) are the port's ``device_resident``
     # epochs; the host loop is the JAX ``_fit_loop``.
-    trainer.fit(dataset, epochs=cfg["epochs"], batch_size=cfg["batch_size"],
-                train_split=cfg["train_split"], seed=cfg["seed"],
-                checkpoint_dir=cfg["checkpoint_dir"], config=cfg,
-                device_resident=bool(cfg.get("use_scan", len(dataset) >= 512)),
-                resume_from=args.resume_from, resume_path=args.resume_path,
-                device=args.device)
+    with _maybe_mesh(args) as mesh:
+        trainer.fit(dataset, epochs=cfg["epochs"], batch_size=cfg["batch_size"],
+                    train_split=cfg["train_split"], seed=cfg["seed"],
+                    checkpoint_dir=cfg["checkpoint_dir"], config=cfg,
+                    device_resident=bool(cfg.get("use_scan", len(dataset) >= 512)),
+                    resume_from=args.resume_from, resume_path=args.resume_path,
+                    mesh=mesh, device=args.device)
 
 
 def cmd_detect(args):

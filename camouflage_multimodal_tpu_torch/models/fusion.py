@@ -49,6 +49,7 @@ class MultiheadAttention(nn.Module):
         self.dropout = float(dropout)
         self.use_pallas = use_pallas
         self.generator: Optional[torch.Generator] = None
+        self.data_group = None
         for name in PARAM_NAMES:
             shape = (embed_dim, embed_dim) if name.startswith("w") else (embed_dim,)
             self.register_parameter(name, nn.Parameter(torch.zeros(shape)))
@@ -71,7 +72,8 @@ class MultiheadAttention(nn.Module):
             return fused_mha(params, q, k, v, self.num_heads, key_mask)
         rate = self.dropout if self.training else 0.0
         return multihead_attention(params, q, k, v, self.num_heads, key_mask,
-                                   dropout_rate=rate, generator=self.generator)
+                                   dropout_rate=rate, generator=self.generator,
+                                   data_group=self.data_group)
 
 
 class FFN(nn.Module):

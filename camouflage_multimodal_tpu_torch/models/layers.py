@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from camouflage_multimodal_tpu_torch.ops.graph import gcn_layer, masked_batch_stats
+from camouflage_multimodal_tpu_torch.parallel.sharding import rand_rows
 
 
 class MaskedBatchNorm(nn.Module):
@@ -22,7 +23,9 @@ class MaskedBatchNorm(nn.Module):
     running estimates by ``momentum`` toward the batch mean and the unbiased
     variance ``var·n/max(n−1, 1)``; in eval mode it uses the running
     estimates. Padded nodes come out zero. ε = 1e-5, torch's and the JAX
-    module's default. The buffer names are the ones ``convert.py`` writes."""
+    module's default. The buffer names are the ones ``convert.py`` writes.
+    Under a data-parallel group the statistics are the global batch's, so
+    the running estimates are the same on every rank."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5) -> None:
         super().__init__()
@@ -32,6 +35,9 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        # The data-parallel group whose blocks make up the batch (None: this
+        # process holds the whole batch); see :func:`set_data_group`.
+        self.data_group = None
 
     def reset_parameters(self) -> None:
         """Unit scale, zero bias, fresh running statistics."""
@@ -43,7 +49,7 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var, n = masked_batch_stats(x, mask)
+            mean, var, n = masked_batch_stats(x, mask, self.data_group)
             with torch.no_grad():
                 unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
                 self.running_mean.copy_((1 - self.momentum) * self.running_mean
@@ -60,17 +66,20 @@ class Dropout(nn.Module):
     """Inverted dropout with an explicit generator (``nn.Dropout`` can only
     draw from the global one, which a resumable trainer cannot snapshot
     without touching every other consumer). The identity in eval mode and
-    at rate 0, where it draws nothing."""
+    at rate 0, where it draws nothing. Under a data-parallel group it
+    draws the global batch's mask and keeps its own rows
+    (:func:`parallel.sharding.rand_rows`)."""
 
     def __init__(self, p: float) -> None:
         super().__init__()
         self.p = float(p)
         self.generator: Optional[torch.Generator] = None
+        self.data_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        keep = rand_rows(x.shape, self.generator, x.device, self.data_group) >= self.p
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
 
@@ -79,6 +88,16 @@ def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def set_data_group(model: nn.Module, group) -> None:
+    """Every module of ``model`` with batch-wide state — BatchNorm
+    statistics, dropout and attention-dropout draws — treats its input as
+    this rank's block of a batch spread over ``group`` (None: the whole
+    batch)."""
+    for m in model.modules():
+        if hasattr(m, "data_group"):
+            m.data_group = group
 
 
 class GCNConv(nn.Module):

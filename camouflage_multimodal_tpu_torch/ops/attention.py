@@ -34,6 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from camouflage_multimodal_tpu_torch.core import kernels
+from camouflage_multimodal_tpu_torch.parallel.sharding import rand_rows
 
 _NEG_INF = -1e30
 _MAX_SMEM_BYTES = 232448   # a Hopper block's dynamic shared memory, opted in
@@ -87,8 +88,8 @@ def multihead_attention(params: Params, query: torch.Tensor,
                         key: torch.Tensor, value: torch.Tensor, num_heads: int,
                         key_mask: Optional[torch.Tensor] = None,
                         dropout_rate: float = 0.0,
-                        generator: Optional[torch.Generator] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        generator: Optional[torch.Generator] = None,
+                        data_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version. query (B, Nq, E), key/value (B, Nk, E),
     key_mask (B, Nk) bool (True = valid). Returns out (B, Nq, E) and the
     head-averaged probabilities (B, Nq, Nk).
@@ -96,12 +97,12 @@ def multihead_attention(params: Params, query: torch.Tensor,
     ``dropout_rate`` > 0 drops attention probabilities (kept with
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``) with draws
     from ``generator``; the probabilities returned are the pre-dropout ones,
-    like torch's return value."""
+    like torch's return value. Under a ``data_group`` the draw is the
+    global batch's and this rank keeps its rows."""
     _, _, v, probs, _ = _head_probs(params, query, key, value, num_heads, key_mask)
     attn = probs
     if dropout_rate > 0.0:
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) < 1.0 - dropout_rate
+        keep = rand_rows(probs.shape, generator, probs.device, data_group) < 1.0 - dropout_rate
         attn = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
     out = _merge_heads(attn @ v) @ params["wo"] + params["bo"]
     return out, probs.mean(dim=1)

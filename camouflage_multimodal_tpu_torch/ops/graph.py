@@ -9,13 +9,16 @@ torch-geometric's sparse batches, with the same semantics:
   over j ∈ N(i) ∪ {i}, softmax over the senders j (masked at −1e30), heads
   averaged, plus bias,
 * global mean pool over valid nodes,
-* BatchNorm statistics over the valid nodes of the whole batch.
+* BatchNorm statistics over the valid nodes of the whole batch (of every
+  rank's block under data parallelism).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from camouflage_multimodal_tpu_torch.parallel.sharding import all_reduce_sum
 
 _NEG_INF = -1e30
 
@@ -71,14 +74,17 @@ def masked_mean_pool(x: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
     return s / torch.clamp(n, min=1.0)
 
 
-def masked_batch_stats(x: torch.Tensor, mask: torch.Tensor):
+def masked_batch_stats(x: torch.Tensor, mask: torch.Tensor, group=None):
     """(mean, population variance, count n) over every valid position of a
     (..., C) tensor with mask (...,): the statistics torch's BatchNorm1d
     sees on the reference's block-diagonal node batch. ``n`` is a 0-d
-    tensor, at least 1."""
+    tensor, at least 1. Under a data-parallel ``group`` the three sums
+    span every rank's block (what GSPMD computes over the global batch),
+    with the gradient flowing through the all-reduces; the two passes stay
+    two passes, so a world of 1 gives the bits of no group."""
     m = mask.to(x.dtype)[..., None]
     dims = tuple(range(x.ndim - 1))
-    n = torch.clamp(torch.sum(m), min=1.0)
-    mean = torch.sum(x * m, dim=dims) / n
-    var = torch.sum((x - mean) ** 2 * m, dim=dims) / n
+    n = torch.clamp(all_reduce_sum(torch.sum(m), group), min=1.0)
+    mean = all_reduce_sum(torch.sum(x * m, dim=dims), group) / n
+    var = all_reduce_sum(torch.sum((x - mean) ** 2 * m, dim=dims), group) / n
     return mean, var, n

@@ -1,0 +1,93 @@
+"""Process groups, port of ``camouflage_multimodal_tpu/parallel/distributed.py``.
+
+The JAX package is single-controller: one process drives every chip of a
+host and ``jax.distributed`` joins the hosts. PyTorch's idiom is one
+process per card, started by ``torchrun`` (or any launcher that sets
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``); :func:`initialize` joins those processes into the default
+process group, and :mod:`parallel.sharding` lays a ``(data, model)`` mesh
+over it.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def initialize(coordinator_address: Optional[str] = None,
+               num_processes: Optional[int] = None,
+               process_id: Optional[int] = None,
+               backend: Optional[str] = None,
+               timeout_s: Optional[float] = None,
+               device: Optional[str] = None) -> None:
+    """``init_process_group`` with torchrun's variables as fallbacks
+    (``MASTER_ADDR:MASTER_PORT``, ``WORLD_SIZE``, ``RANK``). A no-op for a
+    single process without an address, as the JAX function is, and when a
+    group is already up.
+
+    ``coordinator_address`` is ``host:port``. ``device`` (``"cuda"`` or
+    ``"cpu"``) is where the ranks compute: by default the card for
+    ``backend="nccl"``, or for no ``backend`` where a card is visible, and
+    the CPU otherwise. ``backend`` defaults to ``nccl`` on cards and
+    ``gloo`` on the CPU (two ranks that share one card need ``gloo`` with
+    ``device="cuda"``: NCCL refuses a duplicate GPU). Ranks that compute on
+    cards are pinned to ``cuda:LOCAL_RANK`` (the process id when the
+    launcher sets no ``LOCAL_RANK``). ``timeout_s`` bounds every collective
+    and the rendezvous."""
+    if dist.is_initialized():
+        return
+    env = os.environ
+    if coordinator_address is None and "MASTER_ADDR" in env and "MASTER_PORT" in env:
+        coordinator_address = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+    if num_processes is None and "WORLD_SIZE" in env:
+        num_processes = int(env["WORLD_SIZE"])
+    if process_id is None and "RANK" in env:
+        process_id = int(env["RANK"])
+    if coordinator_address is None:
+        if num_processes in (None, 1):
+            return  # single process
+        raise ValueError(f"{num_processes} processes need a coordinator address "
+                         "(or MASTER_ADDR and MASTER_PORT)")
+    num_processes = 1 if num_processes is None else num_processes
+    process_id = 0 if process_id is None else process_id
+    if device is None:
+        on_card = backend == "nccl" or (backend is None and torch.cuda.is_available())
+        device = "cuda" if on_card else "cpu"
+    if backend is None:
+        backend = "nccl" if device == "cuda" else "gloo"
+    if device == "cuda":
+        torch.cuda.set_device(int(env.get("LOCAL_RANK", process_id)))
+    kwargs = {} if timeout_s is None else {"timeout": datetime.timedelta(seconds=timeout_s)}
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
+                            world_size=num_processes, rank=process_id, **kwargs)
+
+
+def shutdown() -> None:
+    """Tear the default process group down, if one is up."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def process_index() -> int:
+    """This process's rank; 0 when no group is up."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The number of processes; 1 when no group is up."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def global_batch_indices(n: int, shuffle_seed: Optional[int] = None) -> np.ndarray:
+    """Per-process strided shard of [0, n) for host-sharded data loading
+    (the same numpy permutation as the JAX function under ``shuffle_seed``)."""
+    idx = np.arange(n)
+    if shuffle_seed is not None:
+        idx = np.random.default_rng(shuffle_seed).permutation(n)
+    return idx[process_index()::process_count()]

@@ -8,8 +8,11 @@ assignment through kernel B1, drift telemetry), connectivity, Canny,
 region features, 8-connected adjacency, RAG weights, ``RegionGraphGNN``,
 softmax + paint-back, then cross-attention fusion (kernel B2) and its four
 heads. :func:`build_region_graphs_with_labels` is the training variant of
-the graph build, with per-node GT labels. Data-parallel meshes and spatial
-sharding are not ported yet.
+the graph build, with per-node GT labels. Under a data-parallel mesh
+(``mesh=``, :func:`parallel.sharding.make_mesh`) each rank runs its block
+of the batch and the outputs are gathered, so every rank gets the whole
+batch, as the JAX call returns a global array; spatial sharding
+(``spatial=True``) is not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from camouflage_multimodal_tpu_torch.ops.image import rgb_to_gray
 from camouflage_multimodal_tpu_torch.ops.rag import rag_edge_weights, region_adjacency
 from camouflage_multimodal_tpu_torch.ops.regions import region_features, region_label_means
 from camouflage_multimodal_tpu_torch.ops.slic import grid_shape, slic
+from camouflage_multimodal_tpu_torch.parallel.sharding import (
+    SPATIAL_ITEM, data_group, gather_batch, shard_batch)
 
 
 class RegionGraphBatch(NamedTuple):
@@ -127,13 +132,22 @@ def paint_segments(segment_values: torch.Tensor, segments: torch.Tensor,
 
 
 class RegionGraphPipeline:
-    """Images → region-graph GNN predictions, for a model on one device."""
+    """Images → region-graph GNN predictions, for a model on one device, or
+    on every rank of a data-parallel ``mesh`` (each rank's block of the
+    batch, the outputs gathered whole; the batch must divide)."""
 
     def __init__(self, model: RegionGraphGNN, n_segments: int = 500,
                  image_size: int = 256, max_nodes: Optional[int] = None,
                  slic_iters: int = 10, paint_mapping: str = "corrected",
                  window_radius: int = 3,
-                 feature_norm: Optional[int] = None) -> None:
+                 feature_norm: Optional[int] = None,
+                 mesh=None, spatial: bool = False) -> None:
+        if spatial:
+            raise NotImplementedError(
+                f"spatial=True (image rows sharded over the model axis) is not ported yet "
+                f"({SPATIAL_ITEM})")
+        data_group(mesh)   # TypeError for anything but a make_mesh mesh
+        self.mesh = mesh
         self.model = model.eval()
         self.n_segments = n_segments
         self.image_size = image_size
@@ -143,8 +157,14 @@ class RegionGraphPipeline:
         self.feature_norm = feature_norm
         self.paint_mapping = paint_mapping
 
-    @torch.inference_mode()
     def __call__(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self.mesh is None:
+            return self.forward(images)
+        return gather_batch(self.forward(shard_batch(images, self.mesh)), self.mesh)
+
+    @torch.inference_mode()
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The predictions of the images this process holds."""
         batch = build_region_graphs(images, self.n_segments, self.max_nodes,
                                     self.slic_iters, self.window_radius,
                                     self.feature_norm)
@@ -169,17 +189,26 @@ class RegionGraphPipeline:
 
 
 class MultimodalPipeline:
-    """Images + KG category embeddings → 4-head multimodal predictions."""
+    """Images + KG category embeddings → 4-head multimodal predictions, data
+    parallel over the RG pipeline's mesh when it has one."""
 
     def __init__(self, rg_pipeline: RegionGraphPipeline,
                  fusion_model: MultimodalCamouflageDetector) -> None:
         self.rg = rg_pipeline
         self.fusion_model = fusion_model.eval()
 
-    @torch.inference_mode()
     def __call__(self, images: torch.Tensor, kg_tensor: torch.Tensor
                  ) -> Dict[str, torch.Tensor]:
-        rg_out = self.rg(images)
+        mesh = self.rg.mesh
+        if mesh is None:
+            return self.forward(images, kg_tensor)
+        return gather_batch(self.forward(shard_batch(images, mesh), kg_tensor), mesh)
+
+    @torch.inference_mode()
+    def forward(self, images: torch.Tensor, kg_tensor: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+        """The predictions of the images this process holds."""
+        rg_out = self.rg.forward(images)
         B = images.shape[0]
         kg = kg_tensor[None].expand(B, *kg_tensor.shape)
         with record_function("cmt::fusion"):

@@ -8,7 +8,11 @@
 * :func:`mse`.
 
 All take an optional validity mask, so padded nodes or samples drop out of
-the reduction as they would under unpadded batches. The ``*_terms``
+the reduction as they would under unpadded batches. The masked means and
+the weighted cross-entropy also take a data-parallel ``group``: each rank
+then returns its share of the global batch's loss, its own sum over the
+global denominator (all-reduced, without a gradient: it depends on no
+parameter), so the shares add up to the one-rank loss. The ``*_terms``
 functions are the unreduced per-element losses, for trainers that sum over
 the samples of a batch.
 """
@@ -20,6 +24,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from camouflage_multimodal_tpu_torch.parallel.sharding import all_reduce_sum
+
 
 def cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-element negative log-likelihood, unreduced."""
@@ -27,16 +33,20 @@ def cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor) -> torch.Ten
     return -torch.gather(logp, -1, labels[..., None])[..., 0]
 
 
-def _masked_mean(loss: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+def _masked_mean(loss: torch.Tensor, mask: Optional[torch.Tensor],
+                 group=None) -> torch.Tensor:
     if mask is None:
-        return loss.mean()
+        if group is None:
+            return loss.mean()
+        mask = torch.ones_like(loss, dtype=torch.bool)
     loss = torch.where(mask, loss, 0.0)
-    return loss.sum() / torch.clamp(mask.sum().to(loss.dtype), min=1.0)
+    return loss.sum() / torch.clamp(all_reduce_sum(mask.sum().to(loss.dtype), group), min=1.0)
 
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            class_weights: Optional[Sequence[float]] = None,
-                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           mask: Optional[torch.Tensor] = None,
+                           group=None) -> torch.Tensor:
     """logits (..., C), labels (...,) int64, mask (...,) bool."""
     nll = cross_entropy_terms(logits, labels)
     if class_weights is not None:
@@ -45,7 +55,7 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         w = torch.ones_like(nll)
     if mask is not None:
         w = torch.where(mask, w, 0.0)
-    return (w * nll).sum() / torch.clamp(w.sum(), min=1e-12)
+    return (w * nll).sum() / torch.clamp(all_reduce_sum(w.sum(), group), min=1e-12)
 
 
 def bce_terms(logits: torch.Tensor, targets: torch.Tensor,
@@ -57,9 +67,10 @@ def bce_terms(logits: torch.Tensor, targets: torch.Tensor,
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
                     pos_weight: float = 1.0,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    mask: Optional[torch.Tensor] = None,
+                    group=None) -> torch.Tensor:
     """Per-element pos-weighted BCE, mean over the (valid) elements."""
-    return _masked_mean(bce_terms(logits, targets, pos_weight), mask)
+    return _masked_mean(bce_terms(logits, targets, pos_weight), mask, group)
 
 
 def focal_terms(logits: torch.Tensor, labels: torch.Tensor, alpha=0.75,

@@ -21,6 +21,8 @@ dropout. ``fit`` has two epoch forms: the host loop collates each batch
 with numpy (the JAX ``_fit_loop``), the device-resident form keeps the
 padded dataset on the device, gathers batches by index there and pulls
 losses and predictions once per epoch (the JAX ``_fit_scan``).
+``fit(mesh=)`` trains data-parallel over the ranks of a
+:func:`parallel.sharding.make_mesh` mesh.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from camouflage_multimodal_tpu_torch.convert import fusion_params_from_state_dict
 from camouflage_multimodal_tpu_torch.core.checkpoint import (
@@ -39,6 +42,9 @@ from camouflage_multimodal_tpu_torch.core.device import resolve_device
 from camouflage_multimodal_tpu_torch.data import extract_label_from_mask
 from camouflage_multimodal_tpu_torch.models.fusion import (
     MultimodalCamouflageDetector, build_multimodal_model)
+from camouflage_multimodal_tpu_torch.models.layers import set_data_group
+from camouflage_multimodal_tpu_torch.parallel.sharding import (
+    all_reduce_grads_, all_reduce_sum, block, data_group, gather_rows, replicate)
 from camouflage_multimodal_tpu_torch.train.losses import (
     bce_terms, cross_entropy_terms, focal_terms)
 from camouflage_multimodal_tpu_torch.train.schedules import cosine_warm_restarts
@@ -256,13 +262,18 @@ class FusionTrainer:
         self.focal_alpha = float(np.clip(1.0 - labels[train_idx].mean(), 0.05, 0.95))
         return np.asarray(dataset.get_balanced_sample_weights())
 
-    def train_step(self, batch: Batch, lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    def train_step(self, batch: Batch, lr: float, group=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step; returns (summed loss, predictions), both on
-        the batch's device."""
+        the batch's device. Under a data-parallel ``group`` ``batch`` is this
+        rank's block: its summed loss is its share of the global batch's, and
+        the gradients are summed over the ranks before the step."""
         self.model.train()
         out = self.model(batch["rg"], batch["kg"], rg_mask=batch["rg_mask"])
         loss = self.batch_loss(out, batch)
         loss.backward()
+        if group is not None:
+            all_reduce_grads_(self.model.parameters(), group)
         apply_updates(self.optimizer, lr)
         return loss.detach(), out["mask_logits"].detach().argmax(-1)
 
@@ -303,10 +314,11 @@ class FusionTrainer:
 
     @staticmethod
     def _device_batches(data: Batch, indices, batch_size: int, augment: bool,
-                        generator: torch.Generator) -> Iterator[Batch]:
+                        generator: torch.Generator, group=None) -> Iterator[Batch]:
         """Full batches gathered by index on the device (a ragged tail is
         dropped, at least one step is kept); augmentation noise is drawn
-        there from ``generator``."""
+        there from ``generator``. Under a data-parallel ``group`` the noise
+        is drawn for the whole batch and this rank's block is yielded."""
         dev = data["rg"].device
         steps = max(len(indices) // batch_size, 1)
         order = torch.from_numpy(np.asarray(indices[: steps * batch_size], np.int64)
@@ -318,21 +330,28 @@ class FusionTrainer:
                 for k in ("rg", "kg"):
                     noise = torch.randn(batch[k].shape, generator=generator, device=dev) * 0.01
                     batch[k] = batch[k] + noise * flips
-            yield batch
+            rows = block(len(idx), group)
+            yield {k: v[rows] for k, v in batch.items()}
 
-    def _run_epoch(self, batches: Iterator[Batch], lr: Optional[float]):
+    def _run_epoch(self, batches: Iterator[Batch], lr: Optional[float], group=None):
         """Train (``lr`` given) or evaluate over ``batches``. Losses,
         predictions and labels stay on the device until the epoch ends and
-        come to the host in one go: (mean loss per sample, preds, labels)."""
+        come to the host in one go: (mean loss per sample, preds, labels).
+        Under a data-parallel ``group`` they are gathered over the ranks
+        first, in the order of one rank's epoch."""
         losses, preds, ys = [], [], []
         for batch in batches:
-            loss, pred = self.train_step(batch, lr) if lr is not None else self.eval_step(batch)
+            loss, pred = (self.train_step(batch, lr, group) if lr is not None
+                          else self.eval_step(batch))
             losses.append(loss)
             preds.append(pred)
             ys.append(batch["y"])
-        preds_np = torch.cat(preds).cpu().numpy()
-        ys_np = torch.cat(ys).cpu().numpy()
-        total = float(torch.stack(losses).double().sum().cpu())
+        if group is None:
+            preds_np, ys_np = (torch.cat(v).cpu().numpy() for v in (preds, ys))
+        else:   # (steps, block) of every rank → (steps, batch), one rank's order
+            preds_np, ys_np = (gather_rows(torch.stack(v).T.contiguous(), group).T.reshape(-1)
+                               .cpu().numpy() for v in (preds, ys))
+        total = float(all_reduce_sum(torch.stack(losses), group).double().sum().cpu())
         return total / max(len(preds_np), 1), preds_np, ys_np
 
     # ------------------------------------------------------------------
@@ -370,17 +389,36 @@ class FusionTrainer:
         epoch form (module docstring); it trains with on-device augmentation
         when ``dataset.augment`` is set. ``resume_path`` snapshots the run
         after every epoch and ``resume_from`` continues such a snapshot
-        bit-exactly. Returns (the trained model, history)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data-parallel fusion training) is not ported yet: "
-                "ROADMAP Queue A, the parallel/ item")
+        bit-exactly.
+
+        ``mesh`` (a :func:`parallel.sharding.make_mesh` mesh, one process per
+        rank) trains data-parallel and forces ``device_resident`` (as the
+        JAX ``fit`` forces its scan epochs): every rank samples the same
+        batches, runs its block of each, draws dropout and augmentation for
+        the whole batch and keeps its rows, and the gradients are summed
+        (the loss is a sum over samples). Predictions are gathered before
+        the F1 scores; every rank returns the same model and history, those
+        of one rank on the whole batch up to float32 summation order; rank 0
+        alone writes files. Returns (the trained model, history)."""
+        group = data_group(mesh)
+        if group is not None:
+            device_resident = True
+            world = dist.get_world_size(group)
+            if batch_size % world:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by the mesh's "
+                    f"data axis ({world})")
         dev = resolve_device(device)
         rng = np.random.default_rng(seed)
         n = len(dataset)
         perm = rng.permutation(n)
         n_train = int(train_split * n)
         train_idx, val_idx = perm[:n_train], perm[n_train:]
+        if group is not None:
+            for split in (train_idx, val_idx):   # a short batch is the split itself
+                if len(split) < batch_size:
+                    block(len(split), group)
+        writer = group is None or dist.get_rank() == 0
 
         weights = self._sample_weights(dataset, train_idx)
         p = weights[train_idx] / weights[train_idx].sum()
@@ -388,87 +426,93 @@ class FusionTrainer:
         if self._init_from_seed:
             self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(dev)
-        self.optimizer = make_adamw(self.model.parameters(), self.weight_decay)
-        generator = torch.Generator(device=dev).manual_seed(seed + 1)
-        self.model.set_generator(generator)
-        data = self._device_dataset(dataset, dev) if device_resident else None
+        if group is not None:
+            replicate(self.model, mesh)
+        set_data_group(self.model, group)
+        try:
+            self.optimizer = make_adamw(self.model.parameters(), self.weight_decay)
+            generator = torch.Generator(device=dev).manual_seed(seed + 1)
+            self.model.set_generator(generator)
+            data = self._device_dataset(dataset, dev) if device_resident else None
 
-        def batches_of(indices, train: bool) -> Iterator[Batch]:
-            if device_resident:
-                return self._device_batches(data, indices, batch_size,
-                                            train and dataset.augment, generator)
-            return self._host_batches(dataset, indices, batch_size, dev)
+            def batches_of(indices, train: bool) -> Iterator[Batch]:
+                if device_resident:
+                    return self._device_batches(data, indices, batch_size,
+                                                train and dataset.augment, generator, group)
+                return self._host_batches(dataset, indices, batch_size, dev)
 
-        history: Dict[str, List[float]] = {k: [] for k in _HISTORY_KEYS}
-        best_f1 = 0.0
-        patience = 0
-        start_epoch = 0
-        if resume_from:
-            blob = load_resume_checkpoint(resume_from)
-            self.model.load_state_dict(
-                {k: torch.from_numpy(np.array(v)) for k, v in blob["model_state"].items()})
-            load_optimizer_arrays(self.model, self.optimizer, blob["optimizer_state"])
-            rng.bit_generator.state = blob["numpy_rng_state"]
-            dataset.rng.bit_generator.state = blob["dataset_rng_state"]
-            generator.set_state(torch.from_numpy(np.array(blob["generator_state"])))
-            history = blob["history"]
-            best_f1 = blob["best_val"]
-            patience = blob["patience"]
-            start_epoch = blob["epoch"] + 1
-            log_fn(f"resumed from {resume_from} at epoch {start_epoch}")
+            history: Dict[str, List[float]] = {k: [] for k in _HISTORY_KEYS}
+            best_f1 = 0.0
+            patience = 0
+            start_epoch = 0
+            if resume_from:
+                blob = load_resume_checkpoint(resume_from)
+                self.model.load_state_dict(
+                    {k: torch.from_numpy(np.array(v)) for k, v in blob["model_state"].items()})
+                load_optimizer_arrays(self.model, self.optimizer, blob["optimizer_state"])
+                rng.bit_generator.state = blob["numpy_rng_state"]
+                dataset.rng.bit_generator.state = blob["dataset_rng_state"]
+                generator.set_state(torch.from_numpy(np.array(blob["generator_state"])))
+                history = blob["history"]
+                best_f1 = blob["best_val"]
+                patience = blob["patience"]
+                start_epoch = blob["epoch"] + 1
+                log_fn(f"resumed from {resume_from} at epoch {start_epoch}")
 
-        for epoch in range(start_epoch, epochs):
-            lr = cosine_warm_restarts(epoch, self.base_lr, T_0=10, T_mult=2)
-            # WeightedRandomSampler(len(train), replacement=True)
-            sampled = rng.choice(train_idx, size=len(train_idx), replace=True, p=p)
-            train_loss, tr_preds, tr_ys = self._run_epoch(batches_of(sampled, True), lr)
-            train_f1 = calculate_f1_score(tr_preds, tr_ys)
-            val_loss, va_preds, va_ys = self._run_epoch(batches_of(val_idx, False), None)
-            val_f1 = calculate_f1_score(va_preds, va_ys)
-            acc_0 = float(100.0 * ((va_preds == va_ys) & (va_ys == 0)).sum()
-                          / max((va_ys == 0).sum(), 1))
-            acc_1 = float(100.0 * ((va_preds == va_ys) & (va_ys == 1)).sum()
-                          / max((va_ys == 1).sum(), 1))
+            for epoch in range(start_epoch, epochs):
+                lr = cosine_warm_restarts(epoch, self.base_lr, T_0=10, T_mult=2)
+                # WeightedRandomSampler(len(train), replacement=True)
+                sampled = rng.choice(train_idx, size=len(train_idx), replace=True, p=p)
+                train_loss, tr_preds, tr_ys = self._run_epoch(batches_of(sampled, True), lr, group)
+                train_f1 = calculate_f1_score(tr_preds, tr_ys)
+                val_loss, va_preds, va_ys = self._run_epoch(batches_of(val_idx, False), None, group)
+                val_f1 = calculate_f1_score(va_preds, va_ys)
+                acc_0 = float(100.0 * ((va_preds == va_ys) & (va_ys == 0)).sum()
+                              / max((va_ys == 0).sum(), 1))
+                acc_1 = float(100.0 * ((va_preds == va_ys) & (va_ys == 1)).sum()
+                              / max((va_ys == 1).sum(), 1))
 
-            history["train_loss"].append(train_loss)
-            history["val_loss"].append(val_loss)
-            for split, f1 in (("train", train_f1), ("val", val_f1)):
-                for key in ("f1_class_0", "f1_class_1", "f1_avg"):
-                    history[f"{split}_{key}"].append(f1[key])
-            history["val_acc_0"].append(acc_0)
-            history["val_acc_1"].append(acc_1)
-            log_fn(f"Epoch {epoch + 1}/{epochs} Train: Loss={train_loss:.4f} "
-                   f"F1_C1={train_f1['f1_class_1']:.3f} | Val: Loss={val_loss:.4f} "
-                   f"F1_C1={val_f1['f1_class_1']:.3f} Acc0={acc_0:.1f}% Acc1={acc_1:.1f}%")
+                history["train_loss"].append(train_loss)
+                history["val_loss"].append(val_loss)
+                for split, f1 in (("train", train_f1), ("val", val_f1)):
+                    for key in ("f1_class_0", "f1_class_1", "f1_avg"):
+                        history[f"{split}_{key}"].append(f1[key])
+                history["val_acc_0"].append(acc_0)
+                history["val_acc_1"].append(acc_1)
+                log_fn(f"Epoch {epoch + 1}/{epochs} Train: Loss={train_loss:.4f} "
+                       f"F1_C1={train_f1['f1_class_1']:.3f} | Val: Loss={val_loss:.4f} "
+                       f"F1_C1={val_f1['f1_class_1']:.3f} Acc0={acc_0:.1f}% Acc1={acc_1:.1f}%")
 
-            if val_f1["f1_class_1"] > best_f1:
-                best_f1 = val_f1["f1_class_1"]
-                patience = 0
-                if checkpoint_dir:
-                    save_checkpoint(
-                        os.path.join(checkpoint_dir, "multimodal_best_fixed.ckpt"),
-                        self._best_payload(epoch, {
-                            "val_loss": val_loss,
-                            "val_f1_class_1": val_f1["f1_class_1"],
-                            "val_f1_avg": val_f1["f1_avg"],
-                            "val_acc_0": acc_0, "val_acc_1": acc_1}, config))
-            else:
-                patience += 1
-                if patience >= max_patience:
-                    log_fn(f"Early stopping after {patience} epochs")
-                    break
-            if resume_path:
-                save_resume_checkpoint(
-                    resume_path,
-                    model_state={k: v.detach().cpu().numpy()
-                                 for k, v in self.model.state_dict().items()},
-                    optimizer_state=optimizer_arrays(self.model, self.optimizer), epoch=epoch,
-                    numpy_rng=rng, generator_state=generator.get_state().cpu().numpy(),
-                    history=history, best_val=best_f1,
-                    dataset_rng_state=dataset.rng.bit_generator.state, patience=patience)
+                if val_f1["f1_class_1"] > best_f1:
+                    best_f1 = val_f1["f1_class_1"]
+                    patience = 0
+                    if checkpoint_dir and writer:
+                        save_checkpoint(
+                            os.path.join(checkpoint_dir, "multimodal_best_fixed.ckpt"),
+                            self._best_payload(epoch, {
+                                "val_loss": val_loss,
+                                "val_f1_class_1": val_f1["f1_class_1"],
+                                "val_f1_avg": val_f1["f1_avg"],
+                                "val_acc_0": acc_0, "val_acc_1": acc_1}, config))
+                else:
+                    patience += 1
+                    if patience >= max_patience:
+                        log_fn(f"Early stopping after {patience} epochs")
+                        break
+                if resume_path and writer:
+                    save_resume_checkpoint(
+                        resume_path,
+                        model_state={k: v.detach().cpu().numpy()
+                                     for k, v in self.model.state_dict().items()},
+                        optimizer_state=optimizer_arrays(self.model, self.optimizer), epoch=epoch,
+                        numpy_rng=rng, generator_state=generator.get_state().cpu().numpy(),
+                        history=history, best_val=best_f1,
+                        dataset_rng_state=dataset.rng.bit_generator.state, patience=patience)
 
-        if checkpoint_dir:
-            os.makedirs(checkpoint_dir, exist_ok=True)
-            with open(os.path.join(checkpoint_dir, "training_history_fixed.json"), "w") as f:
-                json.dump(history, f, indent=2)
-        return self.model, history
+            if checkpoint_dir and writer:
+                os.makedirs(checkpoint_dir, exist_ok=True)
+                with open(os.path.join(checkpoint_dir, "training_history_fixed.json"), "w") as f:
+                    json.dump(history, f, indent=2)
+            return self.model, history
+        finally:
+            set_data_group(self.model, None)   # the group may not outlive the fit

@@ -12,7 +12,9 @@ The graphs are built once, on the device, by
 :func:`pipeline.build_region_graphs_with_labels` (SLIC through kernel B1,
 connectivity, Canny, features, RAG) in batches of ``max(batch_size, 16)``
 and kept there; every epoch gathers its batches by index on the device and
-pulls its metrics to the host once. As in the JAX trainer an epoch keeps
+pulls its metrics to the host once. ``fit(mesh=)`` trains data-parallel
+over the ranks of a :func:`parallel.sharding.make_mesh` mesh. As in the JAX
+trainer an epoch keeps
 every sample: a ragged tail becomes one more batch of the last
 ``batch_size`` samples of the order (the tail window), and the numpy RNG is
 consumed in the JAX ``fit``'s order (the split permutation, then one
@@ -25,12 +27,16 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from camouflage_multimodal_tpu_torch.convert import region_graph_params_from_state_dict
 from camouflage_multimodal_tpu_torch.core.checkpoint import (
     load_resume_checkpoint, save_checkpoint, save_resume_checkpoint)
 from camouflage_multimodal_tpu_torch.core.device import resolve_device
+from camouflage_multimodal_tpu_torch.models.layers import set_data_group
 from camouflage_multimodal_tpu_torch.models.region_graph import RegionGraphGNN
+from camouflage_multimodal_tpu_torch.parallel.sharding import (
+    all_reduce_grads_, all_reduce_sum, block, data_group, replicate, scatter_rows)
 from camouflage_multimodal_tpu_torch.pipeline import (
     build_region_graphs_with_labels, padded_nodes)
 from camouflage_multimodal_tpu_torch.train.losses import bce_with_logits, weighted_cross_entropy
@@ -48,27 +54,34 @@ DATA_KEYS = ("features", "edge_weights", "node_mask") + LABEL_KEYS
 
 
 def rg_loss(outputs: Dict[str, torch.Tensor], labels: Dict[str, torch.Tensor],
-            node_mask: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            node_mask: torch.Tensor, group=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, {loss, acc_mask, acc_instance}) of one batch, every entry a
-    0-d tensor; padded nodes count nowhere."""
+    0-d tensor; padded nodes count nowhere. Under a data-parallel
+    ``group`` the loss is this rank's share of the global batch's and the
+    metrics are the global batch's."""
     loss_mask = weighted_cross_entropy(
-        outputs["mask_logits"], labels["mask_labels"], MASK_CLASS_WEIGHTS, node_mask
+        outputs["mask_logits"], labels["mask_labels"], MASK_CLASS_WEIGHTS, node_mask, group
     ) * TASK_WEIGHTS["mask"]
     loss_instance = weighted_cross_entropy(
-        outputs["instance_logits"], labels["instance_labels"], INSTANCE_CLASS_WEIGHTS, node_mask
-    ) * TASK_WEIGHTS["instance"]
+        outputs["instance_logits"], labels["instance_labels"], INSTANCE_CLASS_WEIGHTS, node_mask,
+        group) * TASK_WEIGHTS["instance"]
     loss_edge = bce_with_logits(
-        outputs["edge_logits"][..., 0], labels["edge_labels"], EDGE_POS_WEIGHT, node_mask
+        outputs["edge_logits"][..., 0], labels["edge_labels"], EDGE_POS_WEIGHT, node_mask, group
     ) * TASK_WEIGHTS["edge"]
     loss = loss_mask + loss_instance + loss_edge
 
-    n = torch.clamp(node_mask.sum().float(), min=1.0)
     pred_mask = outputs["mask_logits"].argmax(-1)
     pred_inst = outputs["instance_logits"].argmax(-1)
+    counts = all_reduce_sum(torch.stack([
+        ((pred_mask == labels["mask_labels"]) & node_mask).sum(),
+        ((pred_inst == labels["instance_labels"]) & node_mask).sum(),
+        node_mask.sum()]).float(), group)
+    n = torch.clamp(counts[2], min=1.0)
     metrics = {
-        "loss": loss,
-        "acc_mask": ((pred_mask == labels["mask_labels"]) & node_mask).sum() / n,
-        "acc_instance": ((pred_inst == labels["instance_labels"]) & node_mask).sum() / n,
+        "loss": all_reduce_sum(loss.detach(), group),
+        "acc_mask": counts[0] / n,
+        "acc_instance": counts[1] / n,
     }
     return loss, metrics
 
@@ -141,16 +154,24 @@ class RGTrainer:
 
     def build_cached_dataset(self, dataset, batch_size: int = 16,
                              weights_dtype: torch.dtype = torch.float32,
-                             device: str | torch.device = "cuda") -> Batch:
+                             device: str | torch.device = "cuda", group=None) -> Batch:
         """The graphs and labels of the whole dataset, stacked on ``device``.
         Builds in batches of ``batch_size`` (the last one padded with its
         final sample, which is then dropped). The adjacency is not stored: it
         is exactly ``edge_weights > 0`` (the weights are strictly positive on
-        RAG edges); ``weights_dtype=torch.bfloat16`` halves that buffer."""
+        RAG edges); ``weights_dtype=torch.bfloat16`` halves that buffer.
+        Under a data-parallel ``group`` rank r builds every world-th batch
+        from the r-th (the same batches and padding, so the same graphs) and
+        the cache is then gathered whole onto every rank."""
         n = len(dataset)
+        starts = list(range(0, n, batch_size))
+        rows = []
         parts: Dict[str, List[torch.Tensor]] = {k: [] for k in DATA_KEYS}
-        for j in range(0, n, batch_size):
+        if group is not None:
+            starts = starts[dist.get_rank(group)::dist.get_world_size(group)]
+        for j in starts:
             chunk = list(range(j, min(j + batch_size, n)))
+            rows.extend(chunk)
             raw = dataset.load_batch(chunk + [chunk[-1]] * (batch_size - len(chunk)))
             batch, labels = self.build_graphs(raw["image"], raw["mask"], raw["instance"],
                                               raw["edge"], device)
@@ -160,7 +181,23 @@ class RGTrainer:
             parts["node_mask"].append(batch.node_mask[:keep])
             for k in LABEL_KEYS:
                 parts[k].append(labels[k][:keep])
-        return {k: torch.cat(v) for k, v in parts.items()}
+        if group is None:
+            return {k: torch.cat(v) for k, v in parts.items()}
+        dev = resolve_device(device)
+        idx = torch.tensor(rows, dtype=torch.long, device=dev)
+        like = self._empty_graphs(weights_dtype, dev)
+        return {k: scatter_rows(torch.cat(parts[k]) if parts[k] else like[k], idx, n, group)
+                for k in DATA_KEYS}
+
+    def _empty_graphs(self, weights_dtype: torch.dtype, dev: torch.device) -> Batch:
+        """Zero-row tensors of each cached key (a rank that builds nothing)."""
+        K = self.max_nodes
+        return {"features": torch.zeros((0, K, self.model.in_channels), device=dev),
+                "edge_weights": torch.zeros((0, K, K), dtype=weights_dtype, device=dev),
+                "node_mask": torch.zeros((0, K), dtype=torch.bool, device=dev),
+                "mask_labels": torch.zeros((0, K), dtype=torch.long, device=dev),
+                "instance_labels": torch.zeros((0, K), dtype=torch.long, device=dev),
+                "edge_labels": torch.zeros((0, K), device=dev)}
 
     # ------------------------------------------------------------------
     # Steps
@@ -173,34 +210,40 @@ class RGTrainer:
         batch["edge_weights"] = batch["edge_weights"].float()
         return batch
 
-    def _forward(self, batch: Batch):
+    def _forward(self, batch: Batch, group=None):
         w = batch["edge_weights"]
         out = self.model(batch["features"], w > 0, w, batch["node_mask"])
-        return rg_loss(out, batch, batch["node_mask"])
+        return rg_loss(out, batch, batch["node_mask"], group)
 
-    def train_step(self, batch: Batch, lr: float) -> Dict[str, torch.Tensor]:
-        """One optimizer step; the metrics stay on the batch's device."""
+    def train_step(self, batch: Batch, lr: float, group=None) -> Dict[str, torch.Tensor]:
+        """One optimizer step; the metrics stay on the batch's device. Under
+        a data-parallel ``group`` ``batch`` is this rank's block and the
+        gradients are summed over the ranks before the step."""
         self.model.train()
-        loss, metrics = self._forward(batch)
+        loss, metrics = self._forward(batch, group)
         loss.backward()
+        if group is not None:
+            all_reduce_grads_(self.model.parameters(), group)
         apply_updates(self.optimizer, lr)
         return {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
-    def eval_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
+    def eval_step(self, batch: Batch, group=None) -> Dict[str, torch.Tensor]:
         self.model.eval()
-        return self._forward(batch)[1]
+        return self._forward(batch, group)[1]
 
     def lr_at_epoch(self, epoch: int) -> float:
         return cosine_warm_restarts(epoch, self.base_lr, T_0=10, T_mult=2)
 
-    def _run_epoch(self, data: Batch, order: np.ndarray, lr: Optional[float]):
-        """Train (``lr`` given) or evaluate over the batches of ``order``;
-        returns the epoch's mean metrics."""
+    def _run_epoch(self, data: Batch, order: np.ndarray, lr: Optional[float], group=None):
+        """Train (``lr`` given) or evaluate over the batches of ``order``
+        (each rank over its block of every batch under a data-parallel
+        ``group``); returns the epoch's mean metrics."""
         steps = []
         for idx in torch.from_numpy(order).to(data["features"].device):
-            batch = self.gather(data, idx)
-            steps.append(self.train_step(batch, lr) if lr is not None else self.eval_step(batch))
+            batch = self.gather(data, idx[block(len(idx), group)])
+            steps.append(self.train_step(batch, lr, group) if lr is not None
+                         else self.eval_step(batch, group))
         return mean_per_epoch(steps)
 
     # ------------------------------------------------------------------
@@ -229,67 +272,92 @@ class RGTrainer:
         every epoch and ``resume_from`` continues one bit-exactly, on the card
         too when it rebuilds its graphs: the build's segment sums run in a
         fixed order there (``ops.regions.index_sum``), so a rebuilt dataset
-        has the same bits. Returns (the trained model, history)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data-parallel RG training) is not ported yet: "
-                "ROADMAP Queue A, the parallel/ item")
+        has the same bits.
+
+        ``mesh`` (a :func:`parallel.sharding.make_mesh` mesh, one process per
+        rank) trains data-parallel: the graph build is split over the ranks
+        by build batch and gathered, every step runs on this rank's block of
+        the global batch with global loss normalizers, BatchNorm statistics
+        and dropout draws, and the gradients are summed. Every rank returns
+        the same model and history, those of one rank on the whole batch up
+        to float32 summation order; rank 0 alone writes the checkpoints.
+        Returns (the trained model, history)."""
+        group = data_group(mesh)
+        if group is not None:
+            world = dist.get_world_size(group)
+            if batch_size % world:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by the mesh's "
+                    f"data axis ({world})")
         dev = resolve_device(device)
         rng = np.random.default_rng(seed)
         n = len(dataset)
         perm = rng.permutation(n)
         n_train = int(train_split * n)
         train_idx, val_idx = perm[:n_train], perm[n_train:]
+        if group is not None:
+            for split in (train_idx, val_idx):   # a short batch is the split itself
+                if len(split) < batch_size:
+                    block(len(split), group)
+        writer = group is None or dist.get_rank() == 0
 
         if self._init_from_seed:
             self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(dev)
-        self.optimizer = make_adamw(self.model.parameters(), self.weight_decay)
-        generator = torch.Generator(device=dev).manual_seed(seed + 1)
-        self.model.set_generator(generator)
-        self.data = data = self.build_cached_dataset(
-            dataset, batch_size=max(batch_size, 16), weights_dtype=weights_dtype, device=dev)
+        if group is not None:
+            replicate(self.model, mesh)
+        set_data_group(self.model, group)
+        try:
+            self.optimizer = make_adamw(self.model.parameters(), self.weight_decay)
+            generator = torch.Generator(device=dev).manual_seed(seed + 1)
+            self.model.set_generator(generator)
+            self.data = data = self.build_cached_dataset(
+                dataset, batch_size=max(batch_size, 16), weights_dtype=weights_dtype, device=dev,
+                group=group)
 
-        history: Dict[str, List[float]] = {"train_loss": [], "val_loss": [],
-                                           "train_acc_mask": [], "val_acc_mask": []}
-        best_val = float("inf")
-        start_epoch = 0
-        if resume_from:
-            blob = load_resume_checkpoint(resume_from)
-            self.model.load_state_dict(
-                {k: torch.from_numpy(np.array(v)) for k, v in blob["model_state"].items()})
-            load_optimizer_arrays(self.model, self.optimizer, blob["optimizer_state"])
-            rng.bit_generator.state = blob["numpy_rng_state"]
-            generator.set_state(torch.from_numpy(np.array(blob["generator_state"])))
-            history = blob["history"]
-            best_val = blob["best_val"]
-            start_epoch = blob["epoch"] + 1
-            log_fn(f"resumed from {resume_from} at epoch {start_epoch}")
+            history: Dict[str, List[float]] = {"train_loss": [], "val_loss": [],
+                                               "train_acc_mask": [], "val_acc_mask": []}
+            best_val = float("inf")
+            start_epoch = 0
+            if resume_from:
+                blob = load_resume_checkpoint(resume_from)
+                self.model.load_state_dict(
+                    {k: torch.from_numpy(np.array(v)) for k, v in blob["model_state"].items()})
+                load_optimizer_arrays(self.model, self.optimizer, blob["optimizer_state"])
+                rng.bit_generator.state = blob["numpy_rng_state"]
+                generator.set_state(torch.from_numpy(np.array(blob["generator_state"])))
+                history = blob["history"]
+                best_val = blob["best_val"]
+                start_epoch = blob["epoch"] + 1
+                log_fn(f"resumed from {resume_from} at epoch {start_epoch}")
 
-        for epoch in range(start_epoch, epochs):
-            lr = self.lr_at_epoch(epoch)
-            tr = self._run_epoch(data, epoch_order(rng, train_idx, batch_size, True), lr)
-            va = (self._run_epoch(data, epoch_order(rng, val_idx, batch_size, False), None)
-                  if len(val_idx) else None)
-            va_loss = va["loss"] if va else float("nan")
-            history["train_loss"].append(tr["loss"])
-            history["val_loss"].append(va_loss)
-            history["train_acc_mask"].append(tr["acc_mask"])
-            history["val_acc_mask"].append(va["acc_mask"] if va else float("nan"))
-            log_fn(f"Epoch {epoch + 1}/{epochs} - Loss: {tr['loss']:.4f} - Val Loss: "
-                   f"{va_loss:.4f} - Val Mask Acc: {history['val_acc_mask'][-1]:.4f} "
-                   f"(lr={lr:.6f})")
+            for epoch in range(start_epoch, epochs):
+                lr = self.lr_at_epoch(epoch)
+                tr = self._run_epoch(data, epoch_order(rng, train_idx, batch_size, True), lr, group)
+                va = (self._run_epoch(data, epoch_order(rng, val_idx, batch_size, False),
+                                      None, group) if len(val_idx) else None)
+                va_loss = va["loss"] if va else float("nan")
+                history["train_loss"].append(tr["loss"])
+                history["val_loss"].append(va_loss)
+                history["train_acc_mask"].append(tr["acc_mask"])
+                history["val_acc_mask"].append(va["acc_mask"] if va else float("nan"))
+                log_fn(f"Epoch {epoch + 1}/{epochs} - Loss: {tr['loss']:.4f} - Val Loss: "
+                       f"{va_loss:.4f} - Val Mask Acc: {history['val_acc_mask'][-1]:.4f} "
+                       f"(lr={lr:.6f})")
 
-            if checkpoint_path and va is not None and va_loss < best_val:
-                best_val = va_loss
-                save_checkpoint(checkpoint_path, self.checkpoint_payload(epoch, va_loss))
-            if resume_path:
-                save_resume_checkpoint(
-                    resume_path,
-                    model_state={k: v.detach().cpu().numpy()
-                                 for k, v in self.model.state_dict().items()},
-                    optimizer_state=optimizer_arrays(self.model, self.optimizer),
-                    epoch=epoch, numpy_rng=rng,
-                    generator_state=generator.get_state().cpu().numpy(),
-                    history=history, best_val=best_val)
-        return self.model, history
+                if checkpoint_path and va is not None and va_loss < best_val:
+                    best_val = va_loss
+                    if writer:
+                        save_checkpoint(checkpoint_path, self.checkpoint_payload(epoch, va_loss))
+                if resume_path and writer:
+                    save_resume_checkpoint(
+                        resume_path,
+                        model_state={k: v.detach().cpu().numpy()
+                                     for k, v in self.model.state_dict().items()},
+                        optimizer_state=optimizer_arrays(self.model, self.optimizer),
+                        epoch=epoch, numpy_rng=rng,
+                        generator_state=generator.get_state().cpu().numpy(),
+                        history=history, best_val=best_val)
+            return self.model, history
+        finally:
+            set_data_group(self.model, None)   # the group may not outlive the fit

@@ -6,13 +6,15 @@
     python3 chip_smoke.py --rg-lr-probe
     python3 chip_smoke.py --build-cost
 
-Six paths of the port are driven: multimodal inference
+Seven paths of the port are driven: multimodal inference
 (``MultimodalPredictor``), fusion training (``FusionTrainer``),
 region-graph training (``RGTrainer``), knowledge-graph training with its
 embedding factory (``KGTrainer``), the workflow that joins them
 (extraction → matched fusion dataset → fusion epoch, directory evaluation
-and directory testing) and serving through the CLI (``InferenceService``
-behind ``make_server``, ``cli serve`` and six more subcommands).
+and directory testing), serving through the CLI (``InferenceService``
+behind ``make_server``, ``cli serve`` and six more subcommands), and RG
+training, fusion training and directory evaluation data-parallel over
+``torch.distributed`` ranks.
 
 Phases, each failing the run (nonzero exit, no result line) when it fails:
 
@@ -35,16 +37,19 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    fusion weights in both directions of the main path (4 × 640 queries ×
    13 keys and 4 × 13 queries × 640 keys, partial key masks), the same at
    batch 8 as directory testing calls it and at batches 1 and 2 (the
-   serving buckets below 4), at the training shapes (576) and on a ragged case (37 queries × 75 keys, one
-   batch row with every key masked): out within rtol/atol 1e-4,
+   serving buckets below 4), at the training shapes (576; at batch 4, and
+   at batches 2 and 1, the per-rank blocks of a batch of 4 over two and
+   four ranks) and on a ragged case (37 queries × 75 keys, one batch row
+   with every key masked): out within rtol/atol 1e-4,
    probabilities within rtol 1e-3 / atol 2e-3, a repeat bit-equal, and
    what it keeps for B3 (projected q, k, v, the context, the split pass's
    softmax max and sum) against plain products;
 4. kernel B3 ``fused_mha_bwd``, the gradient of B2, against its plain
    backward through ``torch.autograd`` on the card: the training shapes
-   (4 × 576 × 13 and 4 × 13 × 576), the inference ones (640) and a ragged
-   case (37 queries × 101 keys), partial key masks plus one batch row with
-   every key masked, with a non-zero cotangent for the attention maps and
+   (4 × 576 × 13 and 4 × 13 × 576, and at batches 2 and 1, a rank's block
+   of batch 4 over two and four ranks), the inference ones (640) and a
+   ragged case (37 queries × 101 keys), partial key masks plus, from batch
+   3 up, one batch row with every key masked, with a non-zero cotangent for the attention maps and
    once with none. Each of d_q, d_k, d_v and the 8 parameter gradients
    within rtol = atol = 1e-4, all finite; two runs on the same inputs
    bit-equal; one wrapper launch per call, and the number of CUDA kernels
@@ -149,6 +154,25 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    ``extract-kg`` on phase 8's synthetic annotations: seconds and files of
    each, the files checked; ``load_config`` of the committed YAML (where
    PyYAML is present);
+9d. data parallelism (``parallel/``): phase 7's RG fit and phase 6's
+   fusion fit (dropout 0, lr 1e-3 and 5e-4) without a mesh and with a
+   world-1 mesh under NCCL in this process (``parallel.distributed.initialize``
+   on 127.0.0.1 and a free port, ``make_mesh``): histories and parameters
+   equal to the bit, or within the bars of (b), with the fits' seconds
+   (fusion as ms per step); launch counts zeroed just before each fit and
+   read just after: B1 20 in the RG fit (all in its build), B2 and B3 as
+   in phase 6. Then (b): two processes of this script on this one card
+   (``--dp-rank``, gloo, ``LOCAL_RANK=0``), each running both fits with a
+   two-rank mesh and ``evaluate_directory(data_parallel=True)`` on the
+   workflow's 32 files at batch 16: both ranks end equal to the bit;
+   histories against (a) within 1e-4 relative (the validation losses
+   1e-3),
+   parameters within 3·lr (RG's BatchNorm-fed biases and running means
+   2·lr·steps); the report within 1e-6 of one process's. Each rank's
+   launches: its half of the RG build (B1 10 each, 20 together), B2 and
+   B3 as one rank's fusion fit (each step on half the batch), B1 20 in
+   evaluation (its half of every batch). A rank that fails or takes more
+   than 420 s fails the run;
 10. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel
    (B1 at each pixel-tile shape), the host time to enqueue one call, its
    plain version, ``torch.nn.functional.multi_head_attention_forward``
@@ -210,14 +234,25 @@ TRAIN_EPOCHS = 2
 GRAD_NAMES = ("d_q", "d_k", "d_v", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
 # (name, batch, queries, keys) of B2's checks: both directions at the
 # inference bucket (batch 4, batch 8 as directory testing calls it, and
-# batches 1 and 2, the serving buckets below 4) and at the training bucket,
-# and a ragged case.
+# batches 1 and 2, the serving buckets below 4) and at the training bucket
+# (batch 4, and batches 2 and 1, a rank's block of it over two and four
+# ranks), and a ragged case.
 B2_SHAPES = (("rg2kg", BATCH, 640, 13), ("kg2rg", BATCH, 13, 640),
              ("rg2kg_b8", 8, 640, 13), ("kg2rg_b8", 8, 13, 640),
              ("rg2kg_b1", 1, 640, 13), ("kg2rg_b1", 1, 13, 640),
              ("rg2kg_b2", 2, 640, 13), ("kg2rg_b2", 2, 13, 640),
              ("rg2kg_576", BATCH, TRAIN_NODES, 13), ("kg2rg_576", BATCH, 13, TRAIN_NODES),
+             ("rg2kg_576_b2", 2, TRAIN_NODES, 13), ("kg2rg_576_b2", 2, 13, TRAIN_NODES),
+             ("rg2kg_576_b1", 1, TRAIN_NODES, 13), ("kg2rg_576_b1", 1, 13, TRAIN_NODES),
              ("ragged_37x75", BATCH, 37, 75))
+# (name, batch, queries, keys) of B3's checks: both directions at the
+# training bucket (batch 4, and a rank's block of it over two and four
+# ranks) and at the inference bucket, and a ragged case.
+B3_SHAPES = (("rg2kg", BATCH, TRAIN_NODES, 13), ("kg2rg", BATCH, 13, TRAIN_NODES),
+             ("rg2kg_b2", 2, TRAIN_NODES, 13), ("kg2rg_b2", 2, 13, TRAIN_NODES),
+             ("rg2kg_b1", 1, TRAIN_NODES, 13), ("kg2rg_b1", 1, 13, TRAIN_NODES),
+             ("rg2kg_640", BATCH, 640, 13), ("kg2rg_640", BATCH, 13, 640),
+             ("ragged_37x101", BATCH, 37, 101))
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 on the CUDA
 # cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -507,17 +542,19 @@ def b2_digest(torch, attention_mod, fusion_model):
               "probs": hashlib.sha256(probs.cpu().numpy().tobytes()).hexdigest()})
 
 
-def mha_bwd_case(torch, attention_mod, fusion_model, nq, nk):
+def mha_bwd_case(torch, attention_mod, fusion_model, nq, nk, batch=BATCH):
     """Inputs of one B3 check: ``mha_inputs`` with values of their own, the
-    third batch row's keys all masked, leaves that require grad, and seeded
-    cotangents for both outputs."""
-    params, q, k, mask = mha_inputs(torch, fusion_model, nq, nk, seed=1000 + nq)
-    g = torch.Generator(device="cuda").manual_seed(2000 + nq)
+    third batch row's keys all masked (where there is one), leaves that
+    require grad, and seeded cotangents for both outputs."""
+    params, q, k, mask = mha_inputs(torch, fusion_model, nq, nk, seed=1000 + nq + batch - BATCH,
+                                    batch=batch)
+    g = torch.Generator(device="cuda").manual_seed(2000 + nq + batch - BATCH)
     v = torch.randn(k.shape, generator=g, device="cuda") * 0.5
     mask = mask.clone()
-    mask[2] = False
+    if batch > 2:
+        mask[2] = False
     d_out = torch.randn(q.shape, generator=g, device="cuda")
-    d_probs = torch.randn(BATCH, nq, nk, generator=g, device="cuda")
+    d_probs = torch.randn(batch, nq, nk, generator=g, device="cuda")
     leaves = [t.clone().requires_grad_() for t in
               (q, k, v, *(params[n] for n in attention_mod.PARAM_NAMES))]
     return leaves, mask, d_out, d_probs
@@ -544,10 +581,9 @@ def plain_grads(torch, attention_mod, leaves, mask, d_out, d_probs):
 def phase_fused_mha_bwd(torch, kernels, attention_mod, fusion_model):
     worst = 0.0
     cases = {}
-    for name, nq, nk in (("rg2kg", TRAIN_NODES, 13), ("kg2rg", 13, TRAIN_NODES),
-                         ("rg2kg_640", 640, 13), ("kg2rg_640", 13, 640),
-                         ("ragged_37x101", 37, 101)):
-        leaves, mask, d_out, d_probs = mha_bwd_case(torch, attention_mod, fusion_model, nq, nk)
+    for name, batch, nq, nk in B3_SHAPES:
+        leaves, mask, d_out, d_probs = mha_bwd_case(torch, attention_mod, fusion_model, nq, nk,
+                                                    batch)
         for with_probs in (True, False):
             dp = d_probs if with_probs else None
             before = kernels.LAUNCHES["fused_mha_bwd"]
@@ -571,7 +607,8 @@ def phase_fused_mha_bwd(torch, kernels, attention_mod, fusion_model):
                               for a, b in zip(tiled, want))
             ok = (close and finite and repeat and launched == 1 and tiled_close
                   and 0 < kernel_launches < 7)
-            emit({"phase": "fused_mha_bwd_check", "direction": name, "nq": nq, "nk": nk,
+            emit({"phase": "fused_mha_bwd_check", "direction": name, "batch": batch,
+                  "nq": nq, "nk": nk,
                   "d_probs": with_probs, "max_abs_err": errs, "within_1e-4": close,
                   "finite": finite, "bit_equal_repeat": repeat, "launches": launched,
                   "kernel_launches_per_call": kernel_launches,
@@ -1703,6 +1740,269 @@ def phase_cli(torch, np, cli, packages, out_dir):
         fail(f"{CONFIG} did not load over the defaults")
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_RANK_TIMEOUT = 420      # seconds a rank of the two-rank run may take
+DP_HISTORY_RTOL = 1e-4
+# The validation losses are held to 1e-3 relative. RG's moves with the
+# BatchNorm-fed biases (RG_GRADIENT_FREE), whose steps differ by up to
+# 2·lr·steps between two runs that differ in the last bits
+# (tests/test_torch_port_parallel.py holds it the same way). The fusion
+# fit's is a saturated cross entropy on separable records (~7e-5, then
+# ~2e-6 per sample), about exp(-margin): its relative change is the
+# absolute shift of the logit margins, which parameters ~1e-4 apart move
+# by a few 1e-4.
+DP_VAL_RTOL = 1e-3
+DP_RG_LR = 1e-3            # RGTrainer's and FusionTrainer's defaults
+DP_FUSION_LR = 5e-4
+
+
+def dp_fits(torch, np, kernels, mesh):
+    """{"rg": ..., "fusion": ...}: phase 7's ``RGTrainer.fit`` on its 32
+    images and phase 6's ``FusionTrainer.fit`` (device-resident, dropout
+    0, the kernels on) on its 64 records, both with ``mesh``; each with its
+    history, final state on the host, launch counts (zeroed just before the
+    fit, read just after) and wall seconds."""
+    from camouflage_multimodal_tpu_torch.models import region_graph as model_mod
+    from camouflage_multimodal_tpu_torch.train import train_fusion as train_mod
+    from camouflage_multimodal_tpu_torch.train import train_rg
+
+    quiet = dict(log_fn=lambda *_: None)
+    out = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_rg.RGTrainer(model=rg_model(torch, model_mod), learning_rate=DP_RG_LR)
+    model, history = trainer.fit(BlobDataset(np, RG_IMAGES), epochs=RG_EPOCHS, batch_size=BATCH,
+                                 seed=0, checkpoint_path=None, mesh=mesh, device="cuda", **quiet)
+    torch.cuda.synchronize()
+    out["rg"] = {"seconds": time.perf_counter() - t0, "launches": dict(kernels.LAUNCHES),
+                 "history": history}
+    out["rg"]["state"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+    ds = train_mod.FusionDataset.from_samples(train_records(np), **quiet)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_mod.FusionTrainer(model_config={"dropout": 0.0, "use_pallas": True},
+                                      learning_rate=DP_FUSION_LR)
+    model, history = trainer.fit(ds, epochs=TRAIN_EPOCHS, batch_size=BATCH, seed=0,
+                                 device_resident=True, mesh=mesh, device="cuda", **quiet)
+    torch.cuda.synchronize()
+    out["fusion"] = {"seconds": time.perf_counter() - t0, "launches": dict(kernels.LAUNCHES),
+                     "history": history}
+    out["fusion"]["state"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return out
+
+
+def dp_steps(np):
+    """(RG train + eval steps, fusion train + eval steps) of one fit."""
+    from camouflage_multimodal_tpu_torch.train import train_rg
+
+    n_rg = int(0.8 * RG_IMAGES)
+    rg = sum(len(train_rg.epoch_order(np.random.default_rng(0), range(k), BATCH, False))
+             for k in (n_rg, RG_IMAGES - n_rg))
+    n_fu = int(0.8 * TRAIN_RECORDS)
+    return rg * RG_EPOCHS, (n_fu // BATCH + (TRAIN_RECORDS - n_fu) // BATCH) * TRAIN_EPOCHS
+
+
+def dp_expected(np):
+    """The launches of one world-1 fit: B1 only in the RG graph build (two
+    build batches of 16), B2 twice per fusion train and eval step, B3 twice
+    per fusion train step."""
+    n_fu = int(0.8 * TRAIN_RECORDS)
+    train, evals = n_fu // BATCH, (TRAIN_RECORDS - n_fu) // BATCH
+    return ({"slic_assign": SLIC_ITERS * -(-RG_IMAGES // 16), "fused_mha": 0, "fused_mha_bwd": 0},
+            {"slic_assign": 0, "fused_mha": 2 * (train + evals) * TRAIN_EPOCHS,
+             "fused_mha_bwd": 2 * train * TRAIN_EPOCHS})
+
+
+def dp_diffs(torch, np, got, want):
+    """(history and parameter differences, within the bars) of two fits of
+    ``dp_fits``: histories within rtol 1e-4 (the validation losses 1e-3);
+    parameters 3·lr, RG's BatchNorm-fed biases and running means
+    2·lr·(train steps)."""
+    from camouflage_multimodal_tpu_torch.train import train_rg
+
+    rg_steps = RG_EPOCHS * len(train_rg.epoch_order(
+        np.random.default_rng(0), range(int(0.8 * RG_IMAGES)), BATCH, False))
+    out, ok = {}, True
+    for fit, lr in (("rg", DP_RG_LR), ("fusion", DP_FUSION_LR)):
+        rel, absolute = {}, {}
+        for key, want_h in want[fit]["history"].items():
+            a, b = np.asarray(got[fit]["history"][key]), np.asarray(want_h)
+            absolute[key] = float(np.max(np.abs(a - b)))
+            rel[key] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+            rtol = DP_VAL_RTOL if key == "val_loss" else DP_HISTORY_RTOL
+            ok = ok and bool(np.all(np.abs(a - b) <= rtol * np.abs(b)))
+        params = {}
+        for key, b in want[fit]["state"].items():
+            params[key] = float((got[fit]["state"][key].double() - b.double()).abs().max())
+            loose = fit == "rg" and (key in RG_GRADIENT_FREE or key.endswith("running_mean"))
+            ok = ok and params[key] <= (2 * lr * rg_steps if loose else 3 * lr)
+        out[fit] = {"history_max_rel_diff": rel, "history_max_abs_diff": absolute,
+                    "param_max_abs_diff": max(params.values()),
+                    "param_max_abs_diff_key": max(params, key=params.get)}
+    return out, ok
+
+
+def dp_equal(torch, got, want) -> dict:
+    """Per fit: are history and every parameter and buffer equal to the bit?"""
+    return {fit: got[fit]["history"] == want[fit]["history"] and all(
+        torch.equal(got[fit]["state"][k], v) for k, v in want[fit]["state"].items())
+        for fit in ("rg", "fusion")}
+
+
+def dp_rank_main(torch, np, api, kernels, args):
+    """One rank of the two-rank run (``--dp-rank``): both fits and
+    directory evaluation over a gloo group of two processes on this card;
+    writes its results to ``--dp-work``."""
+    from camouflage_multimodal_tpu_torch.parallel import distributed, sharding
+
+    # The two ranks share the host's cores; oversubscribed, gloo's threads
+    # starve behind the other rank's spinning intra-op threads.
+    torch.set_num_threads(max(1, (os.cpu_count() or DP_WORLD) // DP_WORLD))
+    distributed.initialize(f"127.0.0.1:{args.dp_port}", DP_WORLD, args.dp_rank,
+                           backend="gloo", timeout_s=DP_RANK_TIMEOUT, device="cuda")
+    try:
+        mesh = sharding.make_mesh("cuda")
+        res = dp_fits(torch, np, kernels, mesh)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        report = api.evaluate_directory(
+            ARTIFACTS[1], os.path.join(args.dp_work, "images"),
+            os.path.join(args.dp_work, "gt_object"), batch_size=WORKFLOW_BATCH,
+            data_parallel=True, device="cuda")
+        torch.cuda.synchronize()
+        res["evaluate"] = {"seconds": time.perf_counter() - t0,
+                           "launches": dict(kernels.LAUNCHES), "report": report}
+    finally:
+        distributed.shutdown()
+    states = {f"{fit}/{k}": v.numpy() for fit in ("rg", "fusion")
+              for k, v in res[fit].pop("state").items()}
+    np.savez(os.path.join(args.dp_work, f"rank{args.dp_rank}.npz"), **states)
+    with open(os.path.join(args.dp_work, f"rank{args.dp_rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_data_parallel(torch, np, kernels, api, out_dir):
+    """(a) The two fits without a mesh and with a world-1 NCCL mesh in this
+    process: equal to the bit, or within the bars of ``dp_diffs``; exact
+    launches. (b) Two processes on this one card joined by gloo, each
+    running both fits and ``evaluate_directory(data_parallel=True)`` on the
+    workflow's 32 files: histories and parameters against (a) within the
+    bars, the evaluation report against one process's at 1e-6, launches
+    per rank. Returns {"world1": launches of (a), "ranks": [per rank]}."""
+    from camouflage_multimodal_tpu_torch.parallel import distributed, sharding
+
+    want_rg, want_fusion = dp_expected(np)
+    rg_steps, fusion_steps = dp_steps(np)
+    alone = dp_fits(torch, np, kernels, None)
+    t0 = time.perf_counter()
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                           timeout_s=DP_RANK_TIMEOUT, device="cuda")
+    try:
+        mesh = sharding.make_mesh("cuda")
+        # NCCL sets its communicator up at the first collective: once per
+        # process, timed apart from the fits.
+        torch.distributed.all_reduce(torch.zeros(1, device="cuda"),
+                                     group=sharding.data_group(mesh))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        world1 = dp_fits(torch, np, kernels, mesh)
+    finally:
+        distributed.shutdown()
+    equal = dp_equal(torch, world1, alone)
+    diffs, close = dp_diffs(torch, np, world1, alone)
+    times = {"rg_fit_seconds": {"no_mesh": alone["rg"]["seconds"],
+                                "world1_mesh": world1["rg"]["seconds"]},
+             "fusion_ms_per_step": {"no_mesh": alone["fusion"]["seconds"] * 1e3 / fusion_steps,
+                                    "world1_mesh": world1["fusion"]["seconds"] * 1e3 / fusion_steps},
+             "rg_steps": rg_steps, "fusion_steps": fusion_steps,
+             "group_and_mesh_setup_seconds": setup_s}
+    launches = {fit: world1[fit]["launches"] for fit in ("rg", "fusion")}
+    emit({"phase": "data_parallel_world1", "backend": "nccl", "bit_equal_to_no_mesh": equal,
+          "diffs_to_no_mesh": diffs, "launches": launches,
+          "expected_launches": {"rg": want_rg, "fusion": want_fusion}, **times,
+          "note": "fit seconds include the RG graph build and the fusion dataset upload"})
+    if not all(equal.values()) and not close:
+        fail(f"a world-1 mesh moves the fits beyond the bars: {diffs}")
+    if launches != {"rg": want_rg, "fusion": want_fusion} or any(
+            world1[fit]["launches"] != alone[fit]["launches"] for fit in ("rg", "fusion")):
+        fail(f"world-1 data-parallel fits launched {launches}")
+
+    work = os.path.join(out_dir, "data_parallel")
+    os.makedirs(work)
+    for k in ("images", "gt_object"):
+        os.symlink(os.path.join(out_dir, "workflow", k), os.path.join(work, k))
+    one_report = api.evaluate_directory(ARTIFACTS[1], os.path.join(work, "images"),
+                                        os.path.join(work, "gt_object"),
+                                        batch_size=WORKFLOW_BATCH, device="cuda")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                               "--dp-port", str(port), "--dp-work", work],
+                              env={**os.environ, "LOCAL_RANK": "0"}, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(DP_WORLD)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=DP_RANK_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            tails = []
+            for q in procs:
+                q.kill()
+                tails.append(q.communicate()[0][-2000:])
+            fail(f"a rank of the two-rank run did not finish in {DP_RANK_TIMEOUT} s:\n"
+                 + "\n".join(tails))
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"rank {r} of the two-rank run exited {p.returncode}:\n{log[-4000:]}")
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            res = json.load(f)
+        with np.load(os.path.join(work, f"rank{r}.npz")) as z:
+            for fit in ("rg", "fusion"):
+                res[fit]["state"] = {k.split("/", 1)[1]: torch.from_numpy(z[k])
+                                     for k in z.files if k.startswith(fit + "/")}
+        ranks.append(res)
+    diffs2, close2 = dp_diffs(torch, np, ranks[0], world1)
+    same_ranks = dp_equal(torch, ranks[1], ranks[0])
+    report_err = max(max(abs(res["evaluate"]["report"][k] - v) for k, v in one_report.items())
+                     for res in ranks)
+    per_rank = [{what: res[what]["launches"] for what in ("rg", "fusion", "evaluate")}
+                for res in ranks]
+    rank_times = [{"rg_fit_seconds": res["rg"]["seconds"],
+                   "fusion_ms_per_step": res["fusion"]["seconds"] * 1e3 / fusion_steps,
+                   "evaluate_seconds": res["evaluate"]["seconds"]} for res in ranks]
+    emit({"phase": "data_parallel_two_ranks", "backend": "gloo",
+          "setup": "two processes sharing one card (cuda:0)", "ranks_equal_to_the_bit": same_ranks,
+          "diffs_to_world1": diffs2, "evaluate_report_max_abs_diff_to_one_process": report_err,
+          "launches_per_rank": per_rank, "times_per_rank": rank_times,
+          "wall_seconds_both_ranks": wall})
+    if not close2 or not all(same_ranks.values()) or report_err > 1e-6:
+        fail(f"the two-rank run disagrees: {diffs2}, ranks equal {same_ranks}, "
+             f"evaluation {report_err}")
+    build = [pr["rg"]["slic_assign"] for pr in per_rank]
+    eval_b1 = SLIC_ITERS * -(-WORKFLOW_IMAGES // WORKFLOW_BATCH)
+    for r, pr in enumerate(per_rank):
+        if (pr["fusion"] != want_fusion or pr["rg"]["fused_mha"] or pr["rg"]["fused_mha_bwd"]
+                or pr["evaluate"] != {"slic_assign": eval_b1, "fused_mha": 0, "fused_mha_bwd": 0}):
+            fail(f"rank {r} launched {pr}")
+    if sum(build) != want_rg["slic_assign"] or 0 in build:
+        fail(f"the two ranks' graph builds launched B1 {build} times, expected "
+             f"{want_rg['slic_assign']} in all, on both")
+    return {"world1": launches, "ranks": per_rank}
+
+
+def dp_total(steps, name) -> int:
+    """The launches of kernel ``name`` summed over the steps of a run."""
+    return sum(s[name] for s in steps.values())
+
+
 def build_cost(torch, np, api, reps: int = 5):
     """``--build-cost``: ms per RG graph build of 16 images and per
     inference batch of 4 at 256², three rounds of each; runs on any
@@ -2144,6 +2444,9 @@ def main() -> None:
                     help="run the RG card-vs-CPU comparison on five data seeds and stop")
     ap.add_argument("--build-cost", action="store_true",
                     help="time the RG graph build of 16 and an inference batch of 4 and stop")
+    ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-work", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     trace = os.path.abspath(args.profile) if args.profile else None
     t_start = time.perf_counter()
@@ -2171,6 +2474,9 @@ def main() -> None:
             fail(f"missing artifact {path}")
     os.chdir(REPO)
 
+    if args.dp_rank is not None:
+        dp_rank_main(torch, np, api, kernels, args)
+        return
     if args.rg_lr_probe:
         phase_build(kernels)
         rg_lr_probe(torch, np)
@@ -2200,6 +2506,7 @@ def main() -> None:
         serve_launches, served, serve_images = phase_serve(torch, np, kernels, api, slic_mod)
         phase_cli_serve(np, served, serve_images)
         phase_cli(torch, np, cli_mod, packages, out_dir)
+        dp_launches = phase_data_parallel(torch, np, kernels, api, out_dir)
     (b1_ms, b1_host, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
         torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches, trace)
     b3, b3_bound = phase_times_train(torch, kernels, attention_mod, b3_cases, trainer,
@@ -2222,6 +2529,9 @@ def main() -> None:
          "launches_rg_training": rg_launches["slic_assign"],
          "launches_workflow": workflow_launches["slic_assign"],
          "launches_serving": serve_launches["slic_assign"],
+         "launches_data_parallel_world1": dp_total(dp_launches["world1"], "slic_assign"),
+         "launches_data_parallel_per_rank": [dp_total(r, "slic_assign")
+                                             for r in dp_launches["ranks"]],
          "per_rg_training": "1 launch: one SLIC assignment of 16 images of 256^2 against K=529",
          "max_abs_err": b1["max_abs_err"],
          "ms": b1_ms, "host_ms": b1_host, "plain_ms": b1_plain, "bound_ms": b1_bound[0],
@@ -2235,6 +2545,9 @@ def main() -> None:
          "launches_training": train_launches["fused_mha"],
          "launches_workflow": workflow_launches["fused_mha"],
          "launches_serving": serve_launches["fused_mha"],
+         "launches_data_parallel_world1": dp_total(dp_launches["world1"], "fused_mha"),
+         "launches_data_parallel_per_rank": [dp_total(r, "fused_mha")
+                                             for r in dp_launches["ranks"]],
          "ms_training_shapes": sum(v["fused_mha_ms"] for v in b3.values()),
          "max_abs_err": b2_err,
          "ms": sum(v["ms"] for v in b2.values()),
@@ -2249,6 +2562,9 @@ def main() -> None:
          "launches": train_launches["fused_mha_bwd"], "max_abs_err": b3_err,
          "launches_workflow": workflow_launches["fused_mha_bwd"],
          "launches_serving": serve_launches["fused_mha_bwd"],
+         "launches_data_parallel_world1": dp_total(dp_launches["world1"], "fused_mha_bwd"),
+         "launches_data_parallel_per_rank": [dp_total(r, "fused_mha_bwd")
+                                             for r in dp_launches["ranks"]],
          "ms": sum(v["ms"] for v in b3.values()),
          "host_ms": sum(v["host_ms"] for v in b3.values()),
          "ms_no_d_probs": sum(v["ms_no_d_probs"] for v in b3.values()),

@@ -112,10 +112,46 @@ def test_train_rg_checkpoint_reads_in_jax(ws, capsys):
         torch.testing.assert_close(got[k], torch.as_tensor(np.asarray(want[k])), rtol=0, atol=0)
 
 
+def _data_parallel_argv(ws, command):
+    """``command`` with ``--data-parallel`` on the workspace: train-rg on the
+    images, train-fusion on a seeded RG store of the same names."""
+    out = ws["root"] / f"dp_{command}"
+    if command == "train-rg":
+        return ["train-rg", "--config", ws["rg_cfg"], "--image-dir", ws["images"],
+                "--mask-dir", ws["gt_object"], "--instance-dir", ws["gt_instance"],
+                "--edge-dir", ws["gt_edge"], "--epochs", "1", "--batch-size", "2",
+                "--output", str(out) + ".ckpt", "--data-parallel"]
+    from camouflage_multimodal_tpu_torch.core.artifacts import save_rg_embeddings
+
+    rng = np.random.default_rng(3)
+    store = str(out) + "_rg.npz"
+    save_rg_embeddings(store, {n: {"node_embeddings": rng.standard_normal((16, 128)),
+                                   "graph_embedding": rng.standard_normal((1, 128))}
+                               for n in ws["names"]})
+    cfg = ws["root"] / f"dp_{command}.yaml"
+    cfg.write_text("\n".join([
+        f"rg_embeddings_path: {store}", f"kg_embeddings_path: {ARTIFACTS[2]}",
+        f"mask_dir: {ws['gt_object']}", f"instance_dir: {ws['gt_instance']}",
+        f"edge_dir: {ws['gt_edge']}", f"checkpoint_dir: {out}",
+        "epochs: 1", "batch_size: 2", "train_split: 0.5",
+        "model:", "  hidden_dim: 64", "  num_heads: 4", ""]))
+    return ["train-fusion", "--config", str(cfg), "--data-parallel"]
+
+
 @pytest.mark.parametrize("command", ["train-rg", "train-fusion"])
-def test_data_parallel_raises(ws, command):
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        cli.main([command, "--config", ws["rg_cfg"], "--data-parallel", "--device", "cpu"])
+def test_data_parallel_raises(ws, capsys, command):
+    """``--data-parallel`` raises without a card on the default ``cuda``
+    device; with ``--device cpu`` and no launcher it trains over a world
+    of one, prints the JAX CLI's mesh line and tears its process group
+    down. Data-parallel training itself is held in
+    tests/test_torch_port_parallel.py."""
+    argv = _data_parallel_argv(ws, command)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            cli.main(argv)
+    printed = _main(capsys, argv + ["--device", "cpu"])
+    assert "data-parallel over 1 device(s): mesh {'data': 1, 'model': 1}" in printed
+    assert not torch.distributed.is_initialized()
 
 
 def test_model_commands_default_to_the_card(ws):

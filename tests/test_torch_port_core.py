@@ -134,12 +134,13 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "camouflage_multimodal_tpu"))
-assert len(names) >= 47, names
+assert len(names) >= 50, names
 for needed in ("train.train_fusion", "train.losses", "train.schedules", "train.state",
                "train.train_rg", "train.train_kg", "models.knowledge_graph", "kg.store",
                "kg.featurize", "kg.normalize", "core.torch_compat", "core.artifacts",
                "core.stages", "data.cod10k", "data.labels", "data.matcher", "extract",
-               "eval.metrics", "eval.curves", "utils.metrics"):
+               "eval.metrics", "eval.curves", "utils.metrics", "parallel",
+               "parallel.distributed", "parallel.sharding"):
     assert pkg.__name__ + "." + needed in names, needed
 print("BAD", bad)
 """

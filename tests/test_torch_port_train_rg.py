@@ -523,9 +523,20 @@ def test_port_rg_checkpoint_loads_in_both_packages(tmp_path):
 
 
 def test_rg_fit_refuses_a_mesh_and_a_missing_card():
+    """``mesh=`` takes only a ``parallel.sharding.make_mesh`` mesh, a batch
+    that does not divide over its data axis raises the JAX ``ValueError``
+    (on a two-rank mesh of torch's fake backend), and ``cuda`` raises
+    without a card. Data-parallel fits themselves are held in
+    tests/test_torch_port_parallel.py."""
+    from test_torch_port_parallel import fake_mesh
+
     trainer = RGTrainer(**SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         trainer.fit(TinyDataset(n=4), epochs=1, mesh=object(), device="cpu", **QUIET)
+    with fake_mesh(2) as mesh:
+        with pytest.raises(ValueError, match="not divisible by the mesh's data axis"):
+            trainer.fit(TinyDataset(n=4), epochs=1, batch_size=3, mesh=mesh, device="cpu",
+                        **QUIET)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             trainer.fit(TinyDataset(n=4), epochs=1, **QUIET)
