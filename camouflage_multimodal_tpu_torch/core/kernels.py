@@ -42,15 +42,15 @@ _SIGNATURES = {
     # pix, centers, prev, out, batch, height, width, tile_w, k, ratio, step,
     # stream
     "slic_assign": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-    # q, k, v, mask, wq, bq, wk, bk, wv, bv, wo, bo, qp, kp, vp, ctx, out,
-    # probs, attn_scratch (or null), stats (or null), batch, nq, nk, e, heads,
-    # key_chunks, scale, stream
-    "fused_mha": [_P] * 20 + [_I] * 6 + [_F, _P],
+    # q, k, v, mask, wq, bq, wk, bk, wv, bv, wo, bo (or null), qp, kp, vp,
+    # ctx, out, probs, attn_scratch (or null), stats (or null), batch, nq,
+    # nk, e_in, e, e_out, heads, total_heads, key_chunks, scale, stream
+    "fused_mha": [_P] * 20 + [_I] * 9 + [_F, _P],
     # q, k, v, mask, wq, wk, wv, wo, qp, kp, vp, ctx, stats (or null), d_out,
     # d_probs (or null), scratch, its size in floats; d_q, d_k, d_v, d_wq,
-    # d_bq, d_wk, d_bk, d_wv, d_bv, d_wo, d_bo; batch, nq, nk, e, heads,
-    # key_chunks, scale, stream
-    "fused_mha_bwd": [_P] * 16 + [_L] + [_P] * 11 + [_I] * 6 + [_F, _P],
+    # d_bq, d_wk, d_bk, d_wv, d_bv, d_wo, d_bo; batch, nq, nk, e_in, e,
+    # e_out, heads, total_heads, key_chunks, scale, stream
+    "fused_mha_bwd": [_P] * 16 + [_L] + [_P] * 11 + [_I] * 9 + [_F, _P],
 }
 
 # Further entry points of a library, for tests and measurements.

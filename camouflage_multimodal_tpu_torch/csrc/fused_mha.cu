@@ -5,8 +5,15 @@
 //   Q = q Wq + bq, K = k Wk + bk, V = v Wv + bv           (W applied as x @ W)
 //   per head h: P_h = softmax(scale * Q_h K_h^T, masked keys at -1e30)
 //   out = concat_h(P_h V_h) Wo + bo,   probs = mean_h P_h
-// at float32 accuracy. Q, K, V and the head-concatenated context are written
-// out as well: the backward kernel (fused_mha_bwd.cu) reads them.
+// at float32 accuracy. The weights may be rectangular: Wq, Wk, Wv
+// (E_in, E_loc) and Wo (E_loc, E_out) with E_loc = heads * hd, which is how
+// a rank of the tensor-parallel fusion holds its share of the heads
+// (parallel/sharding.py): then bo may be null (the caller adds it once
+// after summing the ranks' outputs) and probs is the sum over this call's
+// heads divided by total_heads, the heads of all ranks together. With
+// square weights and total_heads == heads this is the function above. Q,
+// K, V and the head-concatenated context are written out as well: the
+// backward kernel (fused_mha_bwd.cu) reads them.
 //
 // Bound on this card: at the main path's shapes (E = 256, 8 heads of 32;
 // rg2kg Nq = 640, Nk = 13 and kg2rg Nq = 13, Nk = 640, batch 4) the four
@@ -134,7 +141,7 @@ __global__ void __launch_bounds__(kShortThreads)
 attn_short_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
                   const float* __restrict__ vp, const unsigned char* __restrict__ mask,
                   float* __restrict__ ctx, float* __restrict__ probs, int nq, int nk, int e,
-                  int heads, float scale) {
+                  int heads, int total_heads, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int hd = e / heads, hp = hd + 1;   // hp odd: (key, head) rows fall on 32 banks
   const int padded = heads * hp, pairs = nk * heads;
@@ -196,7 +203,7 @@ attn_short_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
     if (lane < nk) {
       float mean = 0.f;
       for (int h = 0; h < heads; ++h) mean += sw[lane * heads + h];
-      probs[qrow * nk + lane] = mean / static_cast<float>(heads);
+      probs[qrow * nk + lane] = mean / static_cast<float>(total_heads);
     }
     __syncwarp();   // before the next row overwrites qw and sw
   }
@@ -291,7 +298,8 @@ __global__ void __launch_bounds__(kCombineThreads)
 attn_combine_kernel(const float* __restrict__ ebuf, const float* __restrict__ cmax,
                     const float* __restrict__ csum, const float* __restrict__ cout,
                     float* __restrict__ ctx, float* __restrict__ probs,
-                    float* __restrict__ stats, int nq, int nk, int e, int heads, int chunks) {
+                    float* __restrict__ stats, int nq, int nk, int e, int heads,
+                    int total_heads, int chunks) {
   extern __shared__ float factor[];   // (heads, chunks)
   const int q = blockIdx.x, b = blockIdx.y;
   const int hd = e / heads;
@@ -326,7 +334,7 @@ attn_combine_kernel(const float* __restrict__ ebuf, const float* __restrict__ cm
     float acc = 0.f;
     for (int h = 0; h < heads; ++h)
       acc += ebuf[((static_cast<size_t>(b) * heads + h) * nq + q) * nk + j] * factor[h * chunks + c];
-    probs[qrow * nk + j] = acc / static_cast<float>(heads);
+    probs[qrow * nk + j] = acc / static_cast<float>(total_heads);
   }
 }
 
@@ -334,11 +342,13 @@ attn_combine_kernel(const float* __restrict__ ebuf, const float* __restrict__ cm
 
 CMT_DEFINE_ERROR_STRING
 
-// q (B, Nq, E), k/v (B, Nk, E), mask (B, Nk) bool; w* (E, E) applied as
-// x @ w, b* (E,). Written on the way and kept for the backward: qp
-// (B, Nq, E), kp/vp (B, Nk, E), ctx (B, Nq, E). Outputs out (B, Nq, E),
-// probs (B, Nq, Nk). All float32 except the mask, all 16-byte aligned;
-// E % 4 == 0 and (E / heads) % 4 == 0, E / heads <= 32.
+// q (B, Nq, E_in), k/v (B, Nk, E_in), mask (B, Nk) bool; wq, wk, wv
+// (E_in, E) and wo (E, E_out) applied as x @ w, bq, bk, bv (E,), bo (E_out,)
+// or null (no out-projection bias). Written on the way and kept for the
+// backward: qp (B, Nq, E), kp/vp (B, Nk, E), ctx (B, Nq, E). Outputs out
+// (B, Nq, E_out), probs (B, Nq, Nk): the sum over the heads of P divided by
+// total_heads. All float32 except the mask, all 16-byte aligned; E_in, E
+// and E_out multiples of 4, (E / heads) % 4 == 0, E / heads <= 32.
 // key_chunks == 0 takes the short-key pass (Nk <= 32; attn_scratch unused);
 // otherwise it must be ceil(Nk / 64), attn_scratch holds
 // B * heads * Nq * (Nk + key_chunks * (2 + E / heads)) floats and stats
@@ -351,19 +361,20 @@ CMT_EXPORT int fused_mha(const float* q, const float* k, const float* v,
                          const float* bo, float* qp, float* kp, float* vp,
                          float* ctx, float* out, float* probs,
                          float* attn_scratch, float* stats, int batch, int nq,
-                         int nk, int e,
-                         int heads, int key_chunks, float scale,
+                         int nk, int e_in, int e, int e_out,
+                         int heads, int total_heads, int key_chunks, float scale,
                          void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rq = batch * nq, rk = batch * nk;
   const int hd = e / heads;
-  if (e % 4 || hd % 4 || hd > kMaxHeadDim || hd * heads != e)
+  if (e % 4 || e_in % 4 || e_out % 4 || hd % 4 || hd > kMaxHeadDim || hd * heads != e ||
+      total_heads < heads)
     return static_cast<int>(cudaErrorInvalidValue);
   if (key_chunks == 0 ? nk > kShortKeys : key_chunks != (nk + kChunk - 1) / kChunk)
     return static_cast<int>(cudaErrorInvalidValue);
 
   ProjBatch qkv{{q, k, v}, {wq, wk, wv}, {bq, bk, bv}, {qp, kp, vp}, {rq, rk, rk}, 3};
-  int rc = launch_proj(qkv, e, e, stream);
+  int rc = launch_proj(qkv, e_in, e, stream);
   if (rc != 0) return rc;
 
   if (key_chunks == 0) {
@@ -372,7 +383,7 @@ CMT_EXPORT int fused_mha(const float* q, const float* k, const float* v,
     if (rc != 0) return rc;
     dim3 grid((nq + kShortRows - 1) / kShortRows, batch);
     attn_short_kernel<<<grid, kShortThreads, smem, stream>>>(qp, kp, vp, mask, ctx, probs, nq,
-                                                            nk, e, heads, scale);
+                                                            nk, e, heads, total_heads, scale);
     CMT_CHECK_LAUNCH();
   } else {
     const size_t rows = static_cast<size_t>(batch) * heads * nq;
@@ -388,11 +399,11 @@ CMT_EXPORT int fused_mha(const float* q, const float* k, const float* v,
     rc = cmt_set_smem(attn_combine_kernel, smem);
     if (rc != 0) return rc;
     attn_combine_kernel<<<dim3(nq, batch), kCombineThreads, smem, stream>>>(
-        ebuf, cmax, csum, cout, ctx, probs, stats, nq, nk, e, heads, key_chunks);
+        ebuf, cmax, csum, cout, ctx, probs, stats, nq, nk, e, heads, total_heads, key_chunks);
     CMT_CHECK_LAUNCH();
   }
 
   ProjBatch o{{ctx, nullptr, nullptr}, {wo, nullptr, nullptr}, {bo, nullptr, nullptr},
               {out, nullptr, nullptr}, {rq, 0, 0}, 1};
-  return launch_proj(o, e, e, stream);
+  return launch_proj(o, e, e_out, stream);
 }

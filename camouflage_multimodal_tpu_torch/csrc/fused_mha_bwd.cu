@@ -12,6 +12,11 @@
 //     dS_h = P_h * (dP_h - rowsum(dP_h * P_h)), 0 at masked keys
 //     dQp_h = s dS_h Kp_h,   dKp_h = s dS_h^T Qp_h
 //   d_Wq = q^T dQp, d_bq = sum dQp, d_q = dQp Wq^T; the same for k and v.
+// As in the forward the weights may be a rank's share of the heads: Wq, Wk,
+// Wv (E_in, E_loc), Wo (E_loc, E_out), and d_probs then joins dP divided by
+// total_heads, the heads of all ranks together. d_q, d_k and d_v are this
+// rank's partials; the caller sums them over the ranks
+// (parallel/sharding.py).
 //
 // Bound on this card: at the training shapes (B = 4, E = 256, 8 heads of
 // 32; rg2kg Nq = 576, Nk = 13 and kg2rg Nq = 13, Nk = 576) the eight
@@ -86,68 +91,72 @@ constexpr int kMaxHeadDim = 32;
 
 inline __host__ __device__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// Up to six products of one launch over (.., e) matrices. kNT: y (rows, e) =
-// a (rows, e) @ b^T, b (e, e). kTN: chunk s of y = a^T b over the rows
-// [s * kRowChunk, ...) of a and b (rows, e), written to y + s * e * e, and
-// the column sums of those rows of b to colsum + s * e.
+// Up to six products of one launch. kNT: y (rows, n) = a (rows, inner) @
+// b^T, b (n, inner). kTN: chunk s of y (inner, n) = a^T b over the rows
+// [s * kRowChunk, ...) of a (rows, inner) and b (rows, n), written to
+// y + s * inner * n, and the column sums of those rows of b to
+// colsum + s * n.
 struct GemmBatch {
   const float* a[kMaxProducts];
   const float* b[kMaxProducts];
   float* y[kMaxProducts];
   float* colsum[kMaxProducts];
   int rows[kMaxProducts];
+  int inner[kMaxProducts];
+  int n[kMaxProducts];
   int form[kMaxProducts];
   int count;
 };
 
-inline __host__ __device__ int product_tiles(const GemmBatch& args, int z, int e, int bn) {
-  const int tiles_n = ceil_div(e, bn);
+inline __host__ __device__ int product_tiles(const GemmBatch& args, int z, int bn) {
+  const int tiles_n = ceil_div(args.n[z], bn);
   if (args.form[z] == gemm3::kNT) return ceil_div(args.rows[z], gemm3::kBM) * tiles_n;
-  return ceil_div(e, gemm3::kBM) * tiles_n * ceil_div(args.rows[z], kRowChunk);
+  return ceil_div(args.inner[z], gemm3::kBM) * tiles_n * ceil_div(args.rows[z], kRowChunk);
 }
 
 // blockIdx.x is a flat index over the products' tiles: product after product,
 // and within a kTN product chunk after chunk.
 template <int BN>
-__global__ void __launch_bounds__(gemm3::kThreads) gemm_kernel(GemmBatch args, int e) {
+__global__ void __launch_bounds__(gemm3::kThreads) gemm_kernel(GemmBatch args) {
   __shared__ __align__(16) gemm3::Smem<BN> smem;
-  const int tiles_n = ceil_div(e, BN);
   int t = blockIdx.x;
   int z = 0;
   for (; z < args.count - 1; ++z) {
-    const int tz = product_tiles(args, z, e, BN);
+    const int tz = product_tiles(args, z, BN);
     if (t < tz) break;
     t -= tz;
   }
-  const int rows = args.rows[z];
+  const int rows = args.rows[z], inner = args.inner[z], n = args.n[z];
+  const int tiles_n = ceil_div(n, BN);
   if (args.form[z] == gemm3::kNT) {
-    gemm3::tile_form<BN, gemm3::kNT>(smem, args.a[z], args.b[z], nullptr, args.y[z], rows, e,
-                                     (t / tiles_n) * gemm3::kBM, (t % tiles_n) * BN, 0, e,
+    gemm3::tile_form<BN, gemm3::kNT>(smem, args.a[z], args.b[z], nullptr, args.y[z], rows, n,
+                                     (t / tiles_n) * gemm3::kBM, (t % tiles_n) * BN, 0, inner,
                                      nullptr);
   } else {
-    const int per_chunk = ceil_div(e, gemm3::kBM) * tiles_n;
+    const int per_chunk = ceil_div(inner, gemm3::kBM) * tiles_n;
     const int chunk = t / per_chunk;
     t %= per_chunk;
     const int row0 = (t / tiles_n) * gemm3::kBM;
     const int k_begin = chunk * kRowChunk;
     const int k_end = min(rows, k_begin + kRowChunk);
     gemm3::tile_form<BN, gemm3::kTN>(
-        smem, args.a[z], args.b[z], nullptr, args.y[z] + static_cast<size_t>(chunk) * e * e, e,
-        e, row0, (t % tiles_n) * BN, k_begin, k_end,
-        row0 == 0 && args.colsum[z] ? args.colsum[z] + static_cast<size_t>(chunk) * e : nullptr);
+        smem, args.a[z], args.b[z], nullptr,
+        args.y[z] + static_cast<size_t>(chunk) * inner * n, inner, n, row0, (t % tiles_n) * BN,
+        k_begin, k_end,
+        row0 == 0 && args.colsum[z] ? args.colsum[z] + static_cast<size_t>(chunk) * n : nullptr);
   }
 }
 
-int launch_gemm(const GemmBatch& args, int e, cudaStream_t stream) {
+int launch_gemm(const GemmBatch& args, cudaStream_t stream) {
   int tiles64 = 0, tiles32 = 0;
   for (int z = 0; z < args.count; ++z) {
-    tiles64 += product_tiles(args, z, e, 64);
-    tiles32 += product_tiles(args, z, e, 32);
+    tiles64 += product_tiles(args, z, 64);
+    tiles32 += product_tiles(args, z, 32);
   }
   if (tiles64 >= kSMs) {
-    gemm_kernel<64><<<tiles64, gemm3::kThreads, 0, stream>>>(args, e);
+    gemm_kernel<64><<<tiles64, gemm3::kThreads, 0, stream>>>(args);
   } else {
-    gemm_kernel<32><<<tiles32, gemm3::kThreads, 0, stream>>>(args, e);
+    gemm_kernel<32><<<tiles32, gemm3::kThreads, 0, stream>>>(args);
   }
   CMT_CHECK_LAUNCH();
   return 0;
@@ -226,7 +235,7 @@ attn_bwd_short_kernel(const float* __restrict__ qp, const float* __restrict__ kp
                       const float* __restrict__ d_ctx, const float* __restrict__ d_probs,
                       float* __restrict__ d_qp, float* __restrict__ kp_part,
                       float* __restrict__ vp_part, int batch, int nq, int nk, int e, int heads,
-                      float scale) {
+                      int total_heads, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int hd = e / heads, hp = hd + 1;   // hp odd: (key, head) rows fall on 32 banks
   const int padded = heads * hp, pairs = nk * heads;
@@ -252,7 +261,7 @@ attn_bwd_short_kernel(const float* __restrict__ qp, const float* __restrict__ kp
 
   const bool valid = lane < nk && mask[static_cast<size_t>(b) * nk + lane] != 0;
   const unsigned valid_keys = __ballot_sync(0xffffffffu, valid);
-  const float inv_heads = 1.f / static_cast<float>(heads);
+  const float inv_heads = 1.f / static_cast<float>(total_heads);
   const size_t slab = (static_cast<size_t>(blockIdx.x) * batch + b) * nk * e;
   bool first = true;
   for (int q0 = blockIdx.x * kRows; q0 < nq; q0 += gridDim.x * kRows) {
@@ -352,7 +361,7 @@ attn_bwd_chunk_kernel(const float* __restrict__ qp, const float* __restrict__ kp
                       const float* __restrict__ d_ctx, const float* __restrict__ d_probs,
                       float* __restrict__ dpp, float* __restrict__ qp_part,
                       float* __restrict__ d_kp, float* __restrict__ d_vp, int batch, int nq,
-                      int nk, int e, int heads, float scale) {
+                      int nk, int e, int heads, int total_heads, float scale) {
   __shared__ float ks[kChunk][kMaxHeadDim + 1];
   __shared__ float vs[kChunk][kMaxHeadDim + 1];
   __shared__ float qs[kRows][kMaxHeadDim];
@@ -366,7 +375,7 @@ attn_bwd_chunk_kernel(const float* __restrict__ qp, const float* __restrict__ kp
   const int j0 = chunk * kChunk;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t bh = static_cast<size_t>(b) * heads + h;
-  const float inv_heads = 1.f / static_cast<float>(heads);
+  const float inv_heads = 1.f / static_cast<float>(total_heads);
 
   // Stage the head's slice of the chunk: hd / 4 float4 per key row.
   const int per = hd / 4;
@@ -504,21 +513,25 @@ CMT_EXPORT int fused_mha_bwd_gemm(const float* a, const float* b, float* y, floa
                                   int rows, int e, int form, void* stream_ptr) {
   if (e % 4 || (form != gemm3::kNT && form != gemm3::kTN))
     return static_cast<int>(cudaErrorInvalidValue);
-  GemmBatch g{{a}, {b}, {y}, {colsum}, {rows}, {form}, 1};
-  return launch_gemm(g, e, static_cast<cudaStream_t>(stream_ptr));
+  GemmBatch g{{a}, {b}, {y}, {colsum}, {rows}, {e}, {e}, {form}, 1};
+  return launch_gemm(g, static_cast<cudaStream_t>(stream_ptr));
 }
 
-// Inputs: q (B, Nq, E), k/v (B, Nk, E), mask (B, Nk) bool, w* (E, E) applied
-// as x @ w; qp, kp, vp, ctx and (key_chunks > 0) stats (B, heads, Nq, 2) as
-// the forward wrote them; d_out (B, Nq, E); d_probs (B, Nq, Nk) or null.
-// Outputs: d_q, d_k, d_v and the eight parameter gradients. All float32
-// except the mask, all 16-byte aligned; E % 4 == 0, (E / heads) % 4 == 0,
+// Inputs: q (B, Nq, E_in), k/v (B, Nk, E_in), mask (B, Nk) bool, wq, wk,
+// wv (E_in, E) and wo (E, E_out) applied as x @ w; qp, kp, vp, ctx and
+// (key_chunks > 0) stats (B, heads, Nq, 2) as the forward wrote them; d_out
+// (B, Nq, E_out); d_probs (B, Nq, Nk) or null, which joins dP divided by
+// total_heads. Outputs: d_q, d_k, d_v (B, N, E_in) and the eight parameter
+// gradients, shaped as the parameters. All float32 except the mask, all
+// 16-byte aligned; E_in, E and E_out multiples of 4, (E / heads) % 4 == 0,
 // E / heads <= 32. key_chunks as the forward's: 0 takes the short-key pass
 // (Nk <= 32), otherwise it must be ceil(Nk / 64).
 // scratch holds at least, in floats, with n_q = B Nq E, n_k = B Nk E,
 // s_q = ceil(B Nq / 256), s_k = ceil(B Nk / 256), G = min(ceil(Nq / 16), 64):
 //   2 n_q + 2 n_k                          d_ctx, d_qp, d_kp, d_vp
-//   + (2 s_q + 2 s_k) (E E + E)            row-chunk partials of d_W*, d_b*
+//   + (s_q + 2 s_k) (E_in E + E)           row-chunk partials of d_Wq, d_Wk,
+//                                          d_Wv and their biases
+//   + s_q (E E_out + E_out)                and of d_Wo and d_bo
 //   + (key_chunks == 0 and G > 1 ? 2 G n_k : 0)      block partials of d_kp, d_vp
 //   + (key_chunks > 1 ? key_chunks n_q : 0)          chunk partials of d_qp
 //   + (key_chunks > 0 ? B heads Nq key_chunks : 0)   chunk shares of d_probs * P
@@ -531,28 +544,39 @@ CMT_EXPORT int fused_mha_bwd(
     float* scratch, long long scratch_floats,
     float* d_q, float* d_k, float* d_v, float* d_wq, float* d_bq, float* d_wk,
     float* d_bk, float* d_wv, float* d_bv, float* d_wo, float* d_bo,
-    int batch, int nq, int nk, int e, int heads, int key_chunks, float scale,
-    void* stream_ptr) {
+    int batch, int nq, int nk, int e_in, int e, int e_out, int heads, int total_heads,
+    int key_chunks, float scale, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rq = batch * nq, rk = batch * nk;
   const int hd = e / heads;
-  if (e % 4 || hd % 4 || hd > kMaxHeadDim || hd * heads != e)
+  if (e % 4 || e_in % 4 || e_out % 4 || hd % 4 || hd > kMaxHeadDim || hd * heads != e ||
+      total_heads < heads)
     return static_cast<int>(cudaErrorInvalidValue);
   if (key_chunks == 0 ? nk > kShortKeys : key_chunks != ceil_div(nk, kChunk))
     return static_cast<int>(cudaErrorInvalidValue);
   if (key_chunks > 0 && stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
 
   const size_t n_q = static_cast<size_t>(rq) * e, n_k = static_cast<size_t>(rk) * e;
-  const size_t ee = static_cast<size_t>(e) * e;
   const int sq = ceil_div(rq, kRowChunk), sk = ceil_div(rk, kRowChunk);
   const int short_blocks = min(ceil_div(nq, kRows), kMaxShortBlocks);
+  // Sizes of the four weight and bias gradients: wq, wk, wv, wo.
+  const size_t w_size[4] = {static_cast<size_t>(e_in) * e, static_cast<size_t>(e_in) * e,
+                            static_cast<size_t>(e_in) * e, static_cast<size_t>(e) * e_out};
+  const size_t b_size[4] = {static_cast<size_t>(e), static_cast<size_t>(e),
+                            static_cast<size_t>(e), static_cast<size_t>(e_out)};
+  const int splits[4] = {sq, sk, sk, sq};
+  size_t w_floats = 0, b_floats = 0;
+  for (int i = 0; i < 4; ++i) {
+    w_floats += splits[i] * w_size[i];
+    b_floats += splits[i] * b_size[i];
+  }
   float* d_ctx = scratch;
   float* d_qp = d_ctx + n_q;
   float* d_kp = d_qp + n_q;
   float* d_vp = d_kp + n_k;
   float* w_part = d_vp + n_k;                                   // wq, wk, wv, wo
-  float* b_part = w_part + (2 * static_cast<size_t>(sq) + 2 * sk) * ee;
-  float* attn_part = b_part + (2 * static_cast<size_t>(sq) + 2 * sk) * e;
+  float* b_part = w_part + w_floats;
+  float* attn_part = b_part + b_floats;
   size_t need = static_cast<size_t>(attn_part - scratch);
   if (key_chunks == 0) {
     if (short_blocks > 1) need += 2 * short_blocks * n_k;
@@ -563,7 +587,6 @@ CMT_EXPORT int fused_mha_bwd(
   if (static_cast<long long>(need) > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
 
   // Row-chunk partials; a gradient with one chunk is written in place.
-  const int splits[4] = {sq, sk, sk, sq};
   float* const d_w[4] = {d_wq, d_wk, d_wv, d_wo};
   float* const d_b[4] = {d_bq, d_bk, d_bv, d_bo};
   float* w_to[4];
@@ -574,15 +597,15 @@ CMT_EXPORT int fused_mha_bwd(
     for (int i = 0; i < 4; ++i) {
       w_to[i] = splits[i] == 1 ? d_w[i] : wp;
       b_to[i] = splits[i] == 1 ? d_b[i] : bp;
-      wp += splits[i] * ee;
-      bp += static_cast<size_t>(splits[i]) * e;
+      wp += splits[i] * w_size[i];
+      bp += splits[i] * b_size[i];
     }
   }
 
   // 1. d_ctx = d_out Wo^T; partials of d_Wo = ctx^T d_out and d_bo.
   GemmBatch g1{{d_out, ctx}, {wo, d_out}, {d_ctx, w_to[3]}, {nullptr, b_to[3]}, {rq, rq},
-               {gemm3::kNT, gemm3::kTN}, 2};
-  int rc = launch_gemm(g1, e, stream);
+               {e_out, e}, {e, e_out}, {gemm3::kNT, gemm3::kTN}, 2};
+  int rc = launch_gemm(g1, stream);
   if (rc != 0) return rc;
 
   // 2. and 3. The attention pass and the join of its partials.
@@ -594,7 +617,8 @@ CMT_EXPORT int fused_mha_bwd(
     rc = cmt_set_smem(attn_bwd_short_kernel, smem);
     if (rc != 0) return rc;
     attn_bwd_short_kernel<<<dim3(short_blocks, batch), kShortThreads, smem, stream>>>(
-        qp, kp, vp, mask, d_ctx, d_probs, d_qp, kp_part, vp_part, batch, nq, nk, e, heads, scale);
+        qp, kp, vp, mask, d_ctx, d_probs, d_qp, kp_part, vp_part, batch, nq, nk, e, heads,
+        total_heads, scale);
     CMT_CHECK_LAUNCH();
     add_sum(join, kp_part, d_kp, n_k, short_blocks);
     add_sum(join, vp_part, d_vp, n_k, short_blocks);
@@ -605,12 +629,12 @@ CMT_EXPORT int fused_mha_bwd(
     if (d_probs != nullptr) {
       attn_bwd_chunk_kernel<true><<<grid, kChunkThreads, 0, stream>>>(
           qp, kp, vp, mask, ctx, stats, d_ctx, d_probs, dpp, qp_part, d_kp, d_vp, batch, nq, nk,
-          e, heads, scale);
+          e, heads, total_heads, scale);
       CMT_CHECK_LAUNCH();
     }
     attn_bwd_chunk_kernel<false><<<grid, kChunkThreads, 0, stream>>>(
         qp, kp, vp, mask, ctx, stats, d_ctx, d_probs, dpp, qp_part, d_kp, d_vp, batch, nq, nk, e,
-        heads, scale);
+        heads, total_heads, scale);
     CMT_CHECK_LAUNCH();
     add_sum(join, qp_part, d_qp, n_q, key_chunks);
   }
@@ -624,16 +648,18 @@ CMT_EXPORT int fused_mha_bwd(
                {d_q, d_k, d_v, w_to[0], w_to[1], w_to[2]},
                {nullptr, nullptr, nullptr, b_to[0], b_to[1], b_to[2]},
                {rq, rk, rk, rq, rk, rk},
+               {e, e, e, e_in, e_in, e_in},
+               {e_in, e_in, e_in, e, e, e},
                {gemm3::kNT, gemm3::kNT, gemm3::kNT, gemm3::kTN, gemm3::kTN, gemm3::kTN},
                6};
-  rc = launch_gemm(g2, e, stream);
+  rc = launch_gemm(g2, stream);
   if (rc != 0) return rc;
 
   // 5. The weight and bias gradients: row chunks added in chunk order.
   SumBatch sums{};
   for (int i = 0; i < 4; ++i) {
-    add_sum(sums, w_to[i], d_w[i], ee, splits[i]);
-    add_sum(sums, b_to[i], d_b[i], e, splits[i]);
+    add_sum(sums, w_to[i], d_w[i], w_size[i], splits[i]);
+    add_sum(sums, b_to[i], d_b[i], b_size[i], splits[i]);
   }
   return launch_sums(sums, stream);
 }

@@ -94,7 +94,7 @@ def host_parts(dev) -> None:
                                  out.data_ptr(), probs.data_ptr(),
                                  base + 8 * (n_q + n_k) + 4 * n_stats if chunks else None,
                                  base + 8 * (n_q + n_k) if chunks else None, BATCH, nq, nk, E,
-                                 HEADS, chunks, scale, stream)
+                                 E, E, HEADS, HEADS, chunks, scale, stream)
 
         print(json.dumps({"host_parts": "fused_mha", "nq": nq, "nk": nk,
                           "call_us": _host_us(lambda: A.fused_mha(params, q, k, k, HEADS, mask)),
@@ -115,7 +115,7 @@ def host_parts(dev) -> None:
         weights = [params[n] for n in A.PARAM_NAMES]
         saved = out.grad_fn.saved_tensors[-len(A.SAVED_NAMES):]
         chunks = A._key_chunks(nk, E, HEADS)
-        n_scratch = A._bwd_scratch_floats(BATCH, nq, nk, E, HEADS, chunks)
+        n_scratch = A._bwd_scratch_floats(BATCH, nq, nk, E, HEADS, chunks, E, E)
         sizes = (q.numel(), k.numel(), k.numel()) + (E * E, E) * 4
         scratch = torch.empty(n_scratch, device=dev)
         grads = torch.empty(sum(sizes), device=dev)
@@ -149,7 +149,7 @@ def host_parts(dev) -> None:
                 [null_out], null_leaves, [d_out], retain_graph=True)),
             "wrapper_us": _host_us(lambda: A._launch_backward(q, k, k, mask, weights, saved,
                                                               HEADS, d_out, None)),
-            "checks_us": _host_us(lambda: A._check_cotangents(q, nk, d_out, None)),
+            "checks_us": _host_us(lambda: A._check_cotangents(q, nk, d_out, None, E)),
             "allocations_us": _host_us(lambda: (
                 torch.empty(n_scratch, dtype=torch.float32, device=dev),
                 torch.empty(sum(sizes), dtype=torch.float32, device=dev))),
@@ -157,7 +157,7 @@ def host_parts(dev) -> None:
                                           for g in grads.split_with_sizes(sizes)]),
             "pointers_us": _host_us(pointers),
             "launcher_us": _host_us(lambda: lib.fused_mha_bwd(
-                *args, BATCH, nq, nk, E, HEADS, chunks, scale, stream))}), flush=True)
+                *args, BATCH, nq, nk, E, E, E, HEADS, HEADS, chunks, scale, stream))}), flush=True)
 
     pix = torch.rand(BATCH, 256 * 256, 5, device=dev)
     centers = torch.rand(BATCH, 529, 5, device=dev) * 255

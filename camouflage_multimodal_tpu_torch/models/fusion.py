@@ -23,6 +23,16 @@ LayerNorm uses ε = 1e-6, flax's default (torch's is 1e-5). Dropout draws
 from the ``torch.Generator`` given to
 :meth:`MultimodalCamouflageDetector.set_generator` (the global generator
 when none was given) and is the identity in eval mode.
+
+Under tensor parallelism (:func:`parallel.sharding.shard_fusion_params`)
+each :class:`MultiheadAttention` holds its rank's heads and each
+:class:`FFN` its rank's hidden columns: the input enters through
+``copy_to_model``, the partial outputs and head-summed probabilities leave
+through ``reduce_from_model``, and ``bo`` and ``fc2``'s bias are added once
+after that. The kernels then run on the rank's heads (or raise: there is no
+plain fallback for CUDA tensors); dropout on the sharded activations draws
+for the whole activation and keeps the rank's block. Everything else is
+replicated and computes the same bits on every rank.
 """
 
 from __future__ import annotations
@@ -37,11 +47,47 @@ from camouflage_multimodal_tpu_torch.models.layers import Dropout, glorot_, lecu
 from camouflage_multimodal_tpu_torch.ops.attention import (
     PARAM_NAMES, fused_mha, multihead_attention)
 from camouflage_multimodal_tpu_torch.ops.graph import masked_mean_pool
+from camouflage_multimodal_tpu_torch.parallel.sharding import (
+    block_of, copy_to_model, reduce_from_model)
 
 LAYER_NORM_EPS = 1e-6
 
 
-class MultiheadAttention(nn.Module):
+class ModelShard:
+    """A module whose parameters named in ``SHARD_DIMS`` (local name → the
+    axis split over a ``model`` group; the others are replicated) can be
+    cut into shares by :func:`parallel.sharding.shard_fusion_params`.
+    ``shards`` is how many shares its weights are cut into (1: whole),
+    ``model_group`` the group it computes its share over."""
+
+    SHARD_DIMS: Dict[str, int] = {}
+    shards = 1
+    model_group = None
+
+    def set_model_group(self, group, shards: Optional[int] = None) -> None:
+        """Compute over ``group`` (None: no group); ``shards``, when given,
+        is how many shares the weights are now cut into."""
+        self.model_group = group
+        if shards is not None:
+            self.shards = shards
+
+    def share_group(self):
+        """The group to compute over (None: whole). Raises ``RuntimeError``
+        for weights cut into shares with no group to sum them over, which a
+        sharded fit that ended early leaves behind: computing a share as if
+        it were whole would give another function, silently."""
+        if self.shards != 1 and self.model_group is None:
+            raise RuntimeError(
+                f"{type(self).__name__} holds 1/{self.shards} of its weights and no model "
+                "group: a sharded fit ended before it gathered them; load the weights again")
+        return self.model_group
+
+
+class MultiheadAttention(ModelShard, nn.Module):
+    # Rank r of m keeps heads [r·H/m, (r+1)·H/m): the columns of wq, wk, wv
+    # and their biases, the rows of wo; bo stays whole, added after the sum.
+    SHARD_DIMS = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0, "wo": 0}
+
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  use_pallas: bool = False) -> None:
         super().__init__()
@@ -68,23 +114,50 @@ class MultiheadAttention(nn.Module):
     def forward(self, q, k, v, key_mask=None):
         params = {name: getattr(self, name) for name in PARAM_NAMES}
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        group, heads, total = self.share_group(), self.num_heads, None
+        if group is not None:
+            same = v is k
+            q, k = copy_to_model(q, group), copy_to_model(k, group)
+            v = k if same else copy_to_model(v, group)
+            part = block_of(heads, group)
+            heads, total = part.stop - part.start, self.num_heads
+            params["bo"] = None
         if self.use_pallas and (not self.training or self.dropout == 0.0):
-            return fused_mha(params, q, k, v, self.num_heads, key_mask)
-        rate = self.dropout if self.training else 0.0
-        return multihead_attention(params, q, k, v, self.num_heads, key_mask,
-                                   dropout_rate=rate, generator=self.generator,
-                                   data_group=self.data_group)
+            out, probs = fused_mha(params, q, k, v, heads, key_mask, total_heads=total)
+        else:
+            rate = self.dropout if self.training else 0.0
+            out, probs = multihead_attention(params, q, k, v, heads, key_mask,
+                                             dropout_rate=rate, generator=self.generator,
+                                             data_group=self.data_group, total_heads=total,
+                                             head_group=group)
+        if group is None:
+            return out, probs
+        return reduce_from_model(out, group) + self.bo, reduce_from_model(probs, group)
 
 
-class FFN(nn.Module):
+class FFN(ModelShard, nn.Module):
+    # Rank r keeps its block of the hidden columns: fc1's output features
+    # (torch's (out, in) weight by rows, and its bias), fc2's input features
+    # (weight columns); fc2's bias stays whole, added after the sum.
+    SHARD_DIMS = {"fc1.weight": 0, "fc1.bias": 0, "fc2.weight": 1}
+
     def __init__(self, hidden_dim: int, dropout: float = 0.0) -> None:
         super().__init__()
         self.fc1 = nn.Linear(hidden_dim, hidden_dim * 2)
         self.drop = Dropout(dropout)
         self.fc2 = nn.Linear(hidden_dim * 2, hidden_dim)
 
+    def set_model_group(self, group, shards: Optional[int] = None) -> None:
+        super().set_model_group(group, shards)
+        self.drop.model_group = group
+
     def forward(self, x):
-        return self.fc2(self.drop(torch.relu(self.fc1(x))))
+        group = self.share_group()
+        if group is None:
+            return self.fc2(self.drop(torch.relu(self.fc1(x))))
+        h = self.drop(torch.relu(self.fc1(copy_to_model(x, group))))
+        return reduce_from_model(torch.nn.functional.linear(h, self.fc2.weight),
+                                 group) + self.fc2.bias
 
 
 def collapse_to_3d(t: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ import torch
 from torch import nn
 
 from camouflage_multimodal_tpu_torch.ops.graph import gcn_layer, masked_batch_stats
-from camouflage_multimodal_tpu_torch.parallel.sharding import rand_rows
+from camouflage_multimodal_tpu_torch.parallel.sharding import rand_block
 
 
 class MaskedBatchNorm(nn.Module):
@@ -67,19 +67,23 @@ class Dropout(nn.Module):
     draw from the global one, which a resumable trainer cannot snapshot
     without touching every other consumer). The identity in eval mode and
     at rate 0, where it draws nothing. Under a data-parallel group it
-    draws the global batch's mask and keeps its own rows
-    (:func:`parallel.sharding.rand_rows`)."""
+    draws the global batch's mask and keeps its own rows; on an activation
+    whose last axis is split over a ``model_group`` (set by the FFN that
+    holds it) it draws the whole axis and keeps its columns
+    (:func:`parallel.sharding.rand_block`)."""
 
     def __init__(self, p: float) -> None:
         super().__init__()
         self.p = float(p)
         self.generator: Optional[torch.Generator] = None
         self.data_group = None
+        self.model_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = rand_rows(x.shape, self.generator, x.device, self.data_group) >= self.p
+        keep = rand_block(x.shape, self.generator, x.device, self.data_group,
+                          self.model_group, dim=-1) >= self.p
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
 

@@ -6,6 +6,15 @@ average_attn_weights=True``). Parameters keep the JAX package's layout — a
 dict of ``wq, wk, wv, wo`` (E, E) applied as ``x @ w`` and ``bq, bk, bv,
 bo`` (E,) — because that is the layout the kernels read.
 
+Every function here also takes a rank's share of the heads under tensor
+parallelism (:mod:`parallel.sharding`): ``wq, wk, wv`` (E_in, E_loc) with
+E_loc = ``num_heads`` · head_dim, ``wo`` (E_loc, E_out), ``bo`` ``None``
+(added once after the ranks' outputs are summed) and ``total_heads``, the
+heads of all ranks, by which the probabilities are divided: the sum over
+the ranks of their outputs plus ``bo`` is the whole attention's output, and
+the sum of their probabilities its head mean. With square weights and
+``total_heads`` left out, each computes what it computed before.
+
 :func:`fused_mha` is the trainable fused attention, the port of
 ``ops/pallas_attention.py``:
 
@@ -34,12 +43,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from camouflage_multimodal_tpu_torch.core import kernels
-from camouflage_multimodal_tpu_torch.parallel.sharding import rand_rows
+from camouflage_multimodal_tpu_torch.parallel.sharding import rand_block
 
 _NEG_INF = -1e30
 _MAX_SMEM_BYTES = 232448   # a Hopper block's dynamic shared memory, opted in
 PARAM_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
-_WEIGHT_NAMES = ("wq", "wk", "wv", "wo")
 # B2's attention pass: up to _SHORT_KEYS keys go through the short-key kernel,
 # more are split into chunks of _KEY_CHUNK keys (csrc/fused_mha.cu).
 _SHORT_KEYS = 32
@@ -74,7 +82,7 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def _head_probs(params: Params, query, key, value, num_heads, key_mask):
     """Scaled per-head queries, keys, values and softmax probabilities."""
-    scale = _scale(query.shape[-1] // num_heads)
+    scale = _scale(params["wq"].shape[1] // num_heads)
     q = _split_heads(query @ params["wq"] + params["bq"], num_heads) * scale
     k = _split_heads(key @ params["wk"] + params["bk"], num_heads)
     v = _split_heads(value @ params["wv"] + params["bv"], num_heads)
@@ -84,28 +92,42 @@ def _head_probs(params: Params, query, key, value, num_heads, key_mask):
     return q, k, v, torch.softmax(logits, dim=-1), scale
 
 
+def _head_mean(probs: torch.Tensor, total_heads: Optional[int]) -> torch.Tensor:
+    """(B, H, Nq, Nk) → the sum over the heads divided by ``total_heads``
+    (the mean over these heads when it is None)."""
+    if total_heads is None or total_heads == probs.shape[1]:
+        return probs.mean(dim=1)
+    return probs.sum(dim=1) / total_heads
+
+
 def multihead_attention(params: Params, query: torch.Tensor,
                         key: torch.Tensor, value: torch.Tensor, num_heads: int,
                         key_mask: Optional[torch.Tensor] = None,
                         dropout_rate: float = 0.0,
                         generator: Optional[torch.Generator] = None,
-                        data_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version. query (B, Nq, E), key/value (B, Nk, E),
-    key_mask (B, Nk) bool (True = valid). Returns out (B, Nq, E) and the
-    head-averaged probabilities (B, Nq, Nk).
+                        data_group=None, total_heads: Optional[int] = None,
+                        head_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version. query (B, Nq, E_in), key/value (B, Nk, E_in),
+    key_mask (B, Nk) bool (True = valid). Returns out (B, Nq, E_out) and the
+    head-averaged probabilities (B, Nq, Nk) (module docstring for a rank's
+    share of the heads).
 
     ``dropout_rate`` > 0 drops attention probabilities (kept with
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``) with draws
     from ``generator``; the probabilities returned are the pre-dropout ones,
     like torch's return value. Under a ``data_group`` the draw is the
-    global batch's and this rank keeps its rows."""
+    global batch's and this rank keeps its rows; under a ``head_group`` it
+    is drawn for all ``total_heads`` heads and this rank keeps its own."""
     _, _, v, probs, _ = _head_probs(params, query, key, value, num_heads, key_mask)
     attn = probs
     if dropout_rate > 0.0:
-        keep = rand_rows(probs.shape, generator, probs.device, data_group) < 1.0 - dropout_rate
+        keep = rand_block(probs.shape, generator, probs.device, data_group,
+                          head_group, dim=1) < 1.0 - dropout_rate
         attn = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
-    out = _merge_heads(attn @ v) @ params["wo"] + params["bo"]
-    return out, probs.mean(dim=1)
+    out = _merge_heads(attn @ v) @ params["wo"]
+    if params["bo"] is not None:
+        out = out + params["bo"]
+    return out, _head_mean(probs, total_heads)
 
 
 def multihead_attention_backward(params: Params, query: torch.Tensor,
@@ -113,27 +135,29 @@ def multihead_attention_backward(params: Params, query: torch.Tensor,
                                  num_heads: int,
                                  key_mask: Optional[torch.Tensor],
                                  d_out: Optional[torch.Tensor],
-                                 d_probs: Optional[torch.Tensor]
+                                 d_probs: Optional[torch.Tensor],
+                                 total_heads: Optional[int] = None
                                  ) -> Tuple[Params, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel B3: the exact vector-Jacobian product
     of :func:`multihead_attention` (no dropout), written out.
 
-    ``d_out`` (B, Nq, E) and ``d_probs`` (B, Nq, Nk) are the cotangents of
-    the two outputs; either may be ``None`` (zero). Returns
-    ``(d_params, d_query, d_key, d_value)``. A masked logit gets no
+    ``d_out`` (B, Nq, E_out) and ``d_probs`` (B, Nq, Nk) are the cotangents
+    of the two outputs; either may be ``None`` (zero). Returns
+    ``(d_params, d_query, d_key, d_value)`` (``d_params["bo"]`` also when
+    ``bo`` is None: the sum of ``d_out``). A masked logit gets no
     gradient — also in a row whose keys are all masked, where the
     probabilities are uniform and not zero."""
-    E = query.shape[-1]
+    total_heads = num_heads if total_heads is None else total_heads
     if d_out is None:
-        d_out = torch.zeros_like(query)
+        d_out = query.new_zeros(query.shape[:-1] + (params["wo"].shape[1],))
     q, k, v, p, scale = _head_probs(params, query, key, value, num_heads, key_mask)
     ctx = _merge_heads(p @ v)
 
-    flat = lambda x: x.reshape(-1, E)  # noqa: E731
+    flat = lambda x: x.reshape(-1, x.shape[-1])  # noqa: E731
     d_ctx = _split_heads(d_out @ params["wo"].T, num_heads)
     d_p = d_ctx @ v.transpose(-1, -2)
     if d_probs is not None:
-        d_p = d_p + d_probs[:, None] / num_heads
+        d_p = d_p + d_probs[:, None] / total_heads
     d_s = p * (d_p - (d_p * p).sum(dim=-1, keepdim=True))
     if key_mask is not None:
         d_s = torch.where(key_mask[:, None, None, :], d_s, 0.0)
@@ -267,33 +291,42 @@ def bwd_tile_plan(products, E: int):
 # The kernels' wrappers
 # ---------------------------------------------------------------------------
 
+def _widths(params: Params) -> Tuple[int, int, int]:
+    """(E_in, E_loc, E_out) of the projections: ``wq`` (E_in, E_loc), ``wo``
+    (E_loc, E_out)."""
+    return params["wq"].shape[0], params["wq"].shape[1], params["wo"].shape[1]
+
+
 def _check_cuda_inputs(params: Params, query, key, value, num_heads, key_mask):
     """What the kernels take: float32, contiguous, 16-byte aligned, one CUDA
-    device, at most 32 heads of at most 32 dims with E and the head size
-    multiples of 4 (16-byte loads) and a (B, Nk) bool mask. Returns the data
-    pointers of query, key, value and the parameters in ``PARAM_NAMES``
-    order."""
-    B, Nq, E = query.shape
+    device, at most 32 heads of at most 32 dims with the three widths and
+    the head size multiples of 4 (16-byte loads) and a (B, Nk) bool mask.
+    Returns the data pointers of query, key, value and the parameters in
+    ``PARAM_NAMES`` order (``None`` for a ``bo`` of ``None``)."""
+    B, Nq, E_in = query.shape
     Nk = key.shape[1]
-    if key.shape != (B, Nk, E) or value.shape != (B, Nk, E):
+    if key.shape != (B, Nk, E_in) or value.shape != (B, Nk, E_in):
         raise ValueError(f"fused_mha: key {tuple(key.shape)} / value "
                          f"{tuple(value.shape)} do not match query {tuple(query.shape)}")
+    _, E, E_out = _widths(params)
     if E % num_heads or E // num_heads > 32 or num_heads > 32:
         raise ValueError(f"fused_mha: E={E} must split into {num_heads} heads "
                          "of at most 32 dims, with at most 32 heads")
-    if E % 4 or (E // num_heads) % 4:
-        raise ValueError(f"fused_mha: E={E} and the head size {E // num_heads} "
-                         "must be multiples of 4")
+    if E % 4 or E_in % 4 or E_out % 4 or (E // num_heads) % 4:
+        raise ValueError(f"fused_mha: E={E}, E_in={E_in}, E_out={E_out} and the head "
+                         f"size {E // num_heads} must be multiples of 4")
     if key_mask.shape != (B, Nk) or key_mask.dtype != torch.bool:
         raise ValueError("fused_mha: key_mask must be a (B, Nk) bool tensor")
     index = query.get_device()
-    weights = [params[n] for n in PARAM_NAMES]
-    for n, t in zip(PARAM_NAMES, weights):
-        want = (E, E) if n in _WEIGHT_NAMES else (E,)
-        if t.shape != want:
-            raise ValueError(f"fused_mha: {n} must be {want}")
+    shapes = {"wq": (E_in, E), "wk": (E_in, E), "wv": (E_in, E), "wo": (E, E_out),
+              "bq": (E,), "bk": (E,), "bv": (E,), "bo": (E_out,)}
+    names = [n for n in PARAM_NAMES if params[n] is not None]
+    weights = [params[n] for n in names]
+    for n, t in zip(names, weights):
+        if t.shape != shapes[n]:
+            raise ValueError(f"fused_mha: {n} must be {shapes[n]}")
     pointers = []
-    for n, t in zip(("query", "key", "value") + PARAM_NAMES, [query, key, value] + weights):
+    for n, t in zip(("query", "key", "value", *names), [query, key, value] + weights):
         if t.dtype != torch.float32:
             raise TypeError(f"fused_mha: {n} must be float32, got {t.dtype}")
         if t.get_device() != index:
@@ -305,7 +338,7 @@ def _check_cuda_inputs(params: Params, query, key, value, num_heads, key_mask):
             raise ValueError(f"fused_mha: {n} must be 16-byte aligned")
     if key_mask.get_device() != index or not key_mask.is_contiguous():
         raise ValueError(f"fused_mha: key_mask must be contiguous on {query.device}")
-    return pointers
+    return pointers if params["bo"] is not None else pointers + [None]
 
 
 def _key_chunks(Nk: int, E: int, num_heads: int) -> int:
@@ -323,15 +356,19 @@ def _key_chunks(Nk: int, E: int, num_heads: int) -> int:
     return -(-Nk // _KEY_CHUNK)
 
 
-def _bwd_scratch_floats(B: int, Nq: int, Nk: int, E: int, num_heads: int, chunks: int) -> int:
+def _bwd_scratch_floats(B: int, Nq: int, Nk: int, E: int, num_heads: int, chunks: int,
+                        e_in: int, e_out: int) -> int:
     """Floats of kernel B3's one scratch allocation (the launcher in
     ``csrc/fused_mha_bwd.cu`` lays it out and checks this size): d_ctx, d_qp,
     d_kp, d_vp; the row-chunk partials of the four weight and bias gradients;
     the short pass's block partials of d_kp, d_vp or the split pass's chunk
-    partials of d_qp and chunk shares of ``d_probs * P``."""
+    partials of d_qp and chunk shares of ``d_probs * P``. ``E`` is the
+    width of the heads (E_loc), ``e_in`` and ``e_out`` the widths of the
+    inputs and of the output."""
     n_q, n_k = B * Nq * E, B * Nk * E
-    row_chunks = 2 * -(-B * Nq // _BWD_ROW_CHUNK) + 2 * -(-B * Nk // _BWD_ROW_CHUNK)
-    total = 2 * n_q + 2 * n_k + row_chunks * (E * E + E)
+    s_q, s_k = -(-B * Nq // _BWD_ROW_CHUNK), -(-B * Nk // _BWD_ROW_CHUNK)
+    total = (2 * n_q + 2 * n_k + (s_q + 2 * s_k) * (e_in * E + E)
+             + s_q * (E * e_out + e_out))
     if chunks == 0:
         blocks = min(-(-Nq // _BWD_ROWS), _BWD_MAX_SHORT_BLOCKS)
         return total + (2 * blocks * n_k if blocks > 1 else 0)
@@ -339,7 +376,7 @@ def _bwd_scratch_floats(B: int, Nq: int, Nk: int, E: int, num_heads: int, chunks
 
 
 def _launch_forward(params: Params, query, key, value, num_heads, key_mask,
-                    keep_saved: bool = True):
+                    keep_saved: bool = True, total_heads: Optional[int] = None):
     """Kernel B2. Returns (out, probs, (qp, kp, vp, ctx, stats)): the
     projected queries, keys, values and the head-concatenated context it
     wrote on the way, and the split pass's softmax max and sum per (batch
@@ -347,7 +384,8 @@ def _launch_forward(params: Params, query, key, value, num_heads, key_mask,
     backward reuses; ``()`` instead when ``keep_saved`` is false. Those five
     and the split pass's scratch share one allocation that the call owns."""
     pointers = _check_cuda_inputs(params, query, key, value, num_heads, key_mask)
-    B, Nq, E = query.shape
+    B, Nq, E_in = query.shape
+    _, E, E_out = _widths(params)
     Nk = key.shape[1]
     dev = query.device
     chunks = _key_chunks(Nk, E, num_heads)
@@ -355,7 +393,7 @@ def _launch_forward(params: Params, query, key, value, num_heads, key_mask,
     n_attn = B * num_heads * Nq * (Nk + chunks * (2 + E // num_heads)) if chunks else 0
     n_stats = 2 * B * num_heads * Nq if chunks else 0
     buf = torch.empty(2 * n_q + 2 * n_k + n_stats + n_attn, dtype=torch.float32, device=dev)
-    out = torch.empty_like(query)
+    out = torch.empty((B, Nq, E_out), dtype=torch.float32, device=dev)
     probs = torch.empty((B, Nq, Nk), dtype=torch.float32, device=dev)
     qp = buf.data_ptr()
     ctx, kp, vp = qp + 4 * n_q, qp + 8 * n_q, qp + 8 * n_q + 4 * n_k
@@ -364,8 +402,9 @@ def _launch_forward(params: Params, query, key, value, num_heads, key_mask,
     rc = lib.fused_mha(*pointers[:3], key_mask.data_ptr(), *pointers[3:],
                        qp, kp, vp, ctx, out.data_ptr(), probs.data_ptr(),
                        stats + 4 * n_stats if chunks else None, stats if chunks else None,
-                       B, Nq, Nk, E, num_heads, chunks, _scale(E // num_heads),
-                       kernels.stream_handle(query))
+                       B, Nq, Nk, E_in, E, E_out, num_heads,
+                       num_heads if total_heads is None else total_heads, chunks,
+                       _scale(E // num_heads), kernels.stream_handle(query))
     if rc:
         kernels.check(lib, rc, "fused_mha")
     kernels.LAUNCHES["fused_mha"] += 1
@@ -376,15 +415,15 @@ def _launch_forward(params: Params, query, key, value, num_heads, key_mask,
                         parts[3].view(B, Nk, E), parts[1].view(B, Nq, E), parts[4])
 
 
-def _check_cotangents(query, Nk: int, d_out, d_probs):
+def _check_cotangents(query, Nk: int, d_out, d_probs, e_out: int):
     """What kernel B3 takes for the cotangents: float32 on the query's device,
-    (B, Nq, E) and (B, Nq, Nk) or ``None``, contiguous (copied when autograd
-    hands over a strided one), ``d_out`` 16-byte aligned. Returns the pair,
-    ``d_out`` zero-filled when it was ``None``."""
-    B, Nq, E = query.shape
+    (B, Nq, E_out) and (B, Nq, Nk) or ``None``, contiguous (copied when
+    autograd hands over a strided one), ``d_out`` 16-byte aligned. Returns
+    the pair, ``d_out`` zero-filled when it was ``None``."""
+    B, Nq, _ = query.shape
     if d_out is None:
-        d_out = torch.zeros_like(query)
-    for name, t, shape in (("d_out", d_out, (B, Nq, E)), ("d_probs", d_probs, (B, Nq, Nk))):
+        d_out = query.new_zeros((B, Nq, e_out))
+    for name, t, shape in (("d_out", d_out, (B, Nq, e_out)), ("d_probs", d_probs, (B, Nq, Nk))):
         if t is None:
             continue
         if t.shape != shape:
@@ -403,22 +442,23 @@ def _check_cotangents(query, Nk: int, d_out, d_probs):
 
 
 def _launch_backward(query, key, value, key_mask, weights, saved, num_heads,
-                     d_out, d_probs):
+                     d_out, d_probs, total_heads: Optional[int] = None):
     """Kernel B3 on what B2 checked and saved: ``weights`` in ``PARAM_NAMES``
-    order, ``saved`` in ``SAVED_NAMES`` order. Only the cotangents are
-    checked here. Returns the 11 gradients (d_q, d_k, d_v, then the
-    parameters' in ``PARAM_NAMES`` order) as views of one allocation, which
-    lives as long as any of them does; a second allocation is the kernel's
-    scratch."""
-    B, Nq, E = query.shape
+    order (``bo`` may be None), ``saved`` in ``SAVED_NAMES`` order. Only the
+    cotangents are checked here. Returns the 11 gradients (d_q, d_k, d_v,
+    then the parameters' in ``PARAM_NAMES`` order, ``bo``'s also when it is
+    None) as views of one allocation, which lives as long as any of them
+    does; a second allocation is the kernel's scratch."""
+    B, Nq, E_in = query.shape
+    _, E, E_out = _widths(dict(zip(PARAM_NAMES, weights)))
     Nk = key.shape[1]
     dev = query.device
-    d_out, d_probs = _check_cotangents(query, Nk, d_out, d_probs)
+    d_out, d_probs = _check_cotangents(query, Nk, d_out, d_probs, E_out)
     chunks = _key_chunks(Nk, E, num_heads)
-    n_q, n_k = B * Nq * E, B * Nk * E                 # multiples of 4: the parts stay aligned
-    n_scratch = _bwd_scratch_floats(B, Nq, Nk, E, num_heads, chunks)
+    n_qi, n_ki = B * Nq * E_in, B * Nk * E_in         # multiples of 4: the parts stay aligned
+    n_scratch = _bwd_scratch_floats(B, Nq, Nk, E, num_heads, chunks, E_in, E_out)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    sizes = (n_q, n_k, n_k) + (E * E, E) * 4
+    sizes = (n_qi, n_ki, n_ki) + (E_in * E, E) * 3 + (E * E_out, E_out)
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     base = grads.data_ptr()
     out_ptrs = []
@@ -433,34 +473,38 @@ def _launch_backward(query, key, value, key_mask, weights, saved, num_heads,
         *(t.data_ptr() for t in saved[:4]), stats.data_ptr() if chunks else None,
         d_out.data_ptr(), None if d_probs is None else d_probs.data_ptr(),
         scratch.data_ptr(), n_scratch, *out_ptrs,
-        B, Nq, Nk, E, num_heads, chunks, _scale(E // num_heads),
+        B, Nq, Nk, E_in, E, E_out, num_heads,
+        num_heads if total_heads is None else total_heads, chunks, _scale(E // num_heads),
         kernels.stream_handle(query))
     if rc:
         kernels.check(lib, rc, "fused_mha_bwd")
     kernels.LAUNCHES["fused_mha_bwd"] += 1
     parts = grads.split_with_sizes(sizes)
-    return (parts[0].view(B, Nq, E), parts[1].view(B, Nk, E), parts[2].view(B, Nk, E),
-            *(g.view(E, E) if i % 2 == 0 else g for i, g in enumerate(parts[3:])))
+    shapes = ((B, Nq, E_in), (B, Nk, E_in), (B, Nk, E_in)) + ((E_in, E), (E,)) * 3 + (
+        (E, E_out), (E_out,))
+    return tuple(g.view(shape) for g, shape in zip(parts, shapes))
 
 
 class FusedMHA(torch.autograd.Function):
     """Fused attention with its gradient: forward = kernel B2, backward =
     kernel B3 (the plain versions for CPU tensors). Arguments: query, key,
-    value, key_mask, num_heads, then the eight parameters in
-    ``PARAM_NAMES`` order. The mask has no gradient."""
+    value, key_mask, num_heads, total_heads, then the eight parameters in
+    ``PARAM_NAMES`` order (``bo`` may be None). The mask has no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, query, key, value, key_mask, num_heads, *weights):
+    def forward(ctx, query, key, value, key_mask, num_heads, total_heads, *weights):
         params = dict(zip(PARAM_NAMES, weights))
         saved = ()
         if query.device.type == "cpu":
-            out, probs = multihead_attention(params, query, key, value,
-                                             num_heads, key_mask)
+            out, probs = multihead_attention(params, query, key, value, num_heads, key_mask,
+                                             total_heads=total_heads)
         else:
-            out, probs, saved = _launch_forward(params, query, key, value,
-                                                num_heads, key_mask)
+            out, probs, saved = _launch_forward(params, query, key, value, num_heads,
+                                                key_mask, total_heads=total_heads)
         ctx.save_for_backward(query, key, value, key_mask, *weights, *saved)
-        ctx.num_heads = num_heads
+        ctx.num_heads, ctx.total_heads = num_heads, total_heads
+        ctx.has_bo = weights[-1] is not None
         ctx.set_materialize_grads(False)   # an unused output's cotangent stays None
         return out, probs
 
@@ -471,30 +515,37 @@ class FusedMHA(torch.autograd.Function):
         if query.device.type == "cpu":
             d_params, d_q, d_k, d_v = multihead_attention_backward(
                 dict(zip(PARAM_NAMES, weights)), query, key, value, ctx.num_heads,
-                key_mask, d_out, d_probs)
-            return (d_q, d_k, d_v, None, None, *(d_params[n] for n in PARAM_NAMES))
-        d_q, d_k, d_v, *d_weights = _launch_backward(
-            query, key, value, key_mask, weights, saved, ctx.num_heads, d_out, d_probs)
-        return (d_q, d_k, d_v, None, None, *d_weights)
+                key_mask, d_out, d_probs, ctx.total_heads)
+            d_weights = [d_params[n] for n in PARAM_NAMES]
+        else:
+            d_q, d_k, d_v, *d_weights = _launch_backward(
+                query, key, value, key_mask, weights, saved, ctx.num_heads, d_out, d_probs,
+                ctx.total_heads)
+        if not ctx.has_bo:
+            d_weights[-1] = None
+        return (d_q, d_k, d_v, None, None, None, *d_weights)
 
 
 def fused_mha(params: Params, query: torch.Tensor, key: torch.Tensor,
               value: torch.Tensor, num_heads: int,
-              key_mask: Optional[torch.Tensor] = None
+              key_mask: Optional[torch.Tensor] = None,
+              total_heads: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused attention (kernel B2, with kernel B3 as its gradient) on CUDA;
-    the plain versions on CPU."""
+    the plain versions on CPU. ``num_heads`` heads of ``params`` (a rank's
+    share of ``total_heads`` when given; module docstring)."""
     if query.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mha: unsupported device {query.device}")
     if key_mask is None:
         key_mask = torch.ones(key.shape[:2], dtype=torch.bool, device=query.device)
     needs_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (query, key, value, *params.values()))
+        t is not None and t.requires_grad for t in (query, key, value, *params.values()))
     if needs_grad:
-        return FusedMHA.apply(query, key, value, key_mask, num_heads,
+        return FusedMHA.apply(query, key, value, key_mask, num_heads, total_heads,
                               *(params[n] for n in PARAM_NAMES))
     if query.device.type == "cpu":
-        return multihead_attention(params, query, key, value, num_heads, key_mask)
+        return multihead_attention(params, query, key, value, num_heads, key_mask,
+                                   total_heads=total_heads)
     out, probs, _ = _launch_forward(params, query, key, value, num_heads, key_mask,
-                                    keep_saved=False)
+                                    keep_saved=False, total_heads=total_heads)
     return out, probs

@@ -5,14 +5,28 @@ Gaussian smoothing, Sobel gradients, bilinear non-maximum suppression and
 double-threshold hysteresis as a masked 8-connected dilation run to a fixed
 point. The gradient magnitude uses JAX's ``hypot`` formula
 (``max·sqrt(1 + (min/max)²)``), so it rounds like the reference.
+
+Under spatial sharding (``row_group``: each rank holds a block of rows) the
+stencils run on the rank's rows extended by ``radius + 2`` rows of each
+neighbour (the blur's radius, one row for Sobel and one for the
+non-maximum suppression), so each pads only at the image's global top and
+bottom and the rank's rows come out as without sharding, to the bit. The
+hysteresis is a fixed point over the whole image that runs many dilation
+rounds: rather than a halo exchange per round (a collective each, ~30 ms
+apiece for gloo on CUDA tensors, PERF.md §5), the low and high masks are
+gathered over the ranks once (a byte-exact gather), the fixed point runs
+on the whole image on every rank, and each keeps its rows. A distributed
+form waits for a benchmark that shows this gather matters.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from camouflage_multimodal_tpu_torch.ops.image import gaussian_blur, sobel_h, sobel_v
 from camouflage_multimodal_tpu_torch.ops.morphology import _shift, binary_dilation_full
+from camouflage_multimodal_tpu_torch.parallel.sharding import gather_dim, halo_rows
 
 _STEPS_PER_CHECK = 8   # hysteresis dilations between convergence tests
 
@@ -84,14 +98,26 @@ def _hysteresis(low_mask: torch.Tensor, high_mask: torch.Tensor) -> torch.Tensor
             return cur
 
 
-def canny(gray: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
+def canny(gray: torch.Tensor, sigma: float = 2.0, row_group=None) -> torch.Tensor:
     """Canny edges of float (..., H, W) images in [0, 1] → bool maps, with
-    skimage's float-image thresholds (low 0.1, high 0.2)."""
+    skimage's float-image thresholds (low 0.1, high 0.2). Under a
+    ``row_group``, ``gray`` is this rank's block of rows and so is the
+    result (module docstring)."""
+    if row_group is None:
+        return _hysteresis(*_threshold_masks(gray, sigma))
+    rows = gray.shape[-2]
+    ext, top = halo_rows(gray, int(4.0 * sigma + 0.5) + 2, row_group, dim=-2)
+    low, high = (m.narrow(-2, top, rows) for m in _threshold_masks(ext, sigma))
+    whole = gather_dim(torch.stack([low, high]), low.ndim - 1, row_group)
+    return _hysteresis(whole[0], whole[1]).narrow(-2, rows * dist.get_rank(row_group), rows)
+
+
+def _threshold_masks(gray: torch.Tensor, sigma: float):
+    """Canny's low and high masks: local maxima of the gradient magnitude
+    at or above 0.1 and 0.2."""
     smoothed, eroded = _preprocess(gray, sigma)
     gy = sobel_h(smoothed)
     gx = sobel_v(smoothed)
     mag = _hypot(gy, gx)
     local_max = _nonmax_suppression(gy, gx, mag, eroded)
-    low_mask = local_max & (mag >= 0.1)
-    high_mask = local_max & (mag >= 0.2)
-    return _hysteresis(low_mask, high_mask)
+    return local_max & (mag >= 0.1), local_max & (mag >= 0.2)

@@ -22,11 +22,22 @@ round applied to an image that has already converged is a no-op, so the
 batch runs until its slowest image converges and each image gets exactly
 its own result. The JAX package's run-structured path is bit-identical to
 this one (``tests/test_connectivity_gate.py``), so the port keeps one path.
+
+Under spatial sharding (``row_group``: each rank holds a block of rows) the
+label map is gathered over the ranks with a byte-exact gather (8 bytes a
+pixel, 512 KB at 256²), the pass runs on the whole map on every rank, and
+each keeps its rows. Its fixed points take many rounds, and a distributed
+form would need a collective per round (~30 ms apiece for gloo on CUDA
+tensors, PERF.md §5); it waits for a benchmark that shows the gather
+matters.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from camouflage_multimodal_tpu_torch.parallel.sharding import gather_dim
 
 _MAX_MERGE_ROUNDS = 64
 _SMALL_BIT = 1 << 24
@@ -80,9 +91,17 @@ def connected_components(labels: torch.Tensor) -> torch.Tensor:
 
 
 def enforce_label_connectivity(labels: torch.Tensor, n_segments: int,
-                               max_labels: int | None = None) -> torch.Tensor:
+                               max_labels: int | None = None,
+                               row_group=None) -> torch.Tensor:
     """(B, H, W) integer label maps → 0-based sequential raster-ordered
-    component labels (int64), at most ``max_labels`` of them."""
+    component labels (int64), at most ``max_labels`` of them. Under a
+    ``row_group`` each rank holds a block of rows of the maps, and gets its
+    rows of the result (module docstring)."""
+    if row_group is not None:
+        rows = labels.shape[1]
+        whole = enforce_label_connectivity(gather_dim(labels, 1, row_group), n_segments,
+                                           max_labels)
+        return whole[:, rows * dist.get_rank(row_group):][:, :rows]
     B, H, W = labels.shape
     HW = H * W
     C = min(16 * n_segments, HW)

@@ -15,6 +15,14 @@ radius-2 diamond, and the contributions are rolled back onto the receiving
 pixel so all statistics share one index array — seventeen channels summed
 into K bins by a single :func:`index_sum` (labels ≥ K are dropped), whose
 order is fixed on the card too.
+
+Under spatial sharding (``row_group``: each rank holds a block of rows) the
+per-pixel channels of a rank's rows are computed on its block extended by 4
+rows of each neighbour's segment map and image (the diamond's 2 rows, and 2
+more for the foreign labels of the pixels that give to a receiving pixel),
+so they come out as without sharding; each rank sums its rows into the K
+bins and the bins are all-reduced (SUM: the features use moments and counts
+only), so every rank holds the same features.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Dict
 import torch
 
 from camouflage_multimodal_tpu_torch.ops.image import rgb_to_gray
+from camouflage_multimodal_tpu_torch.parallel.sharding import all_reduce_, halo_rows, spatial_rows
 
 _DIAMOND_1 = [(-1, 0), (1, 0), (0, -1), (0, 1)]
 _DIAMOND_2 = _DIAMOND_1 + [(-2, 0), (2, 0), (0, -2), (0, 2),
@@ -89,9 +98,12 @@ def segment_sum(vals: torch.Tensor, seg: torch.Tensor, K: int) -> torch.Tensor:
     return out.reshape(B, K + 1, C)[:, :K]
 
 
+_HALO = 4   # rows of a neighbour's block that a rank's per-pixel channels read
+
+
 def region_features(image: torch.Tensor, segments: torch.Tensor,
                     edges: torch.Tensor, num_segments: int,
-                    norm_size: int | None = None) -> Dict[str, torch.Tensor]:
+                    norm_size: int | None = None, row_group=None) -> Dict[str, torch.Tensor]:
     """15-dim node features of every segment.
 
     image (B, H, W, 3) float RGB in [0, 1]; segments (B, H, W) integer
@@ -100,23 +112,27 @@ def region_features(image: torch.Tensor, segments: torch.Tensor,
     ``norm_size=256`` reproduces the reference's hard-coded /256 and
     /(256·256) (``region_graph/train.py:130-132``) for reference-recipe
     weights at other sizes. Returns features (B, K, 15), node_mask (B, K)
-    and count (B, K)."""
+    and count (B, K). Under a ``row_group`` the three maps are this rank's
+    block of rows and the results are the whole image's (module
+    docstring)."""
     B, H, W, _ = image.shape
     K = num_segments
     dev = image.device
-    img = image.float()
-    seg = segments.long()
+    rows, H_all = spatial_rows(H, row_group)
+    img, top = halo_rows(image.float(), _HALO, row_group)
+    seg = halo_rows(segments.long(), _HALO, row_group)[0]
     gray = rgb_to_gray(img)
 
     keep2 = _distinct_foreign_neighbors(seg, _DIAMOND_2).float()
-    nb_acc = torch.zeros(B, H, W, 5, dtype=torch.float32, device=dev)
+    nb_acc = torch.zeros(seg.shape + (5,), dtype=torch.float32, device=dev)
     for i, (dy, dx) in enumerate(_DIAMOND_2):
         w = keep2[..., i:i + 1]
         is_r1 = 1.0 if i < len(_DIAMOND_1) else 0.0
         pay = torch.cat([img * w, w, is_r1 * w], dim=-1)
         nb_acc = nb_acc + torch.roll(pay, shifts=(dy, dx), dims=(1, 2))
+    img, seg, gray, nb_acc = (t[:, top:top + H] for t in (img, seg, gray, nb_acc))
 
-    yy = torch.arange(H, dtype=torch.float32, device=dev)
+    yy = torch.arange(rows.start, rows.stop, dtype=torch.float32, device=dev)
     xx = torch.arange(W, dtype=torch.float32, device=dev)
     pos = torch.stack(torch.meshgrid(yy, xx, indexing="ij"), dim=-1).expand(B, H, W, 2)
     vals = torch.cat([
@@ -129,7 +145,7 @@ def region_features(image: torch.Tensor, segments: torch.Tensor,
         torch.ones(B, H, W, 1, device=dev),    # 11    count
         nb_acc,                                # 12:15 nb rgb, 15 nb count, 16 perimeter
     ], dim=-1).reshape(B, H * W, 17)
-    m = segment_sum(vals, seg.reshape(B, H * W), K)
+    m = all_reduce_(segment_sum(vals, seg.reshape(B, H * W), K), row_group)
 
     count = m[..., 11]
     node_mask = count > 0
@@ -140,7 +156,7 @@ def region_features(image: torch.Tensor, segments: torch.Tensor,
     mean_gray = m[..., 6:7] / safe
     var_gray = torch.clamp(m[..., 7:8] / safe - mean_gray ** 2, min=0.0)
     std_gray = torch.sqrt(var_gray)
-    norm_h = norm_size if norm_size is not None else H
+    norm_h = norm_size if norm_size is not None else H_all
     norm_w = norm_size if norm_size is not None else W
     center_y = (m[..., 8:9] / safe) / norm_h
     center_x = (m[..., 9:10] / safe) / norm_w

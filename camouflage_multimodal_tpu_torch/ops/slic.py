@@ -23,6 +23,16 @@ update of its windowed path is only valid inside the window.
 One SLIC call of ``num_iters`` iterations launches B1 ``num_iters`` times
 (``num_iters - 1`` assign + update rounds, then a final assign), each launch
 covering the whole batch.
+
+Under spatial sharding (``row_group``, the mesh's ``model`` group, each rank
+holding a block of image rows; :func:`parallel.sharding.shard_spatial`) the
+Lab blur reads 4 halo rows of each neighbour and reflects only at the
+image's global top and bottom, pixel features carry global y, the centers
+are replicated (the seeds' colours gathered from the ranks that hold their
+rows), B1 assigns this rank's pixels (its candidate lists come from the
+features' positions, so global y needs no change there), and the center
+update sums each rank's moments and all-reduces them: every rank holds the
+same centers and drift.
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ import torch
 from camouflage_multimodal_tpu_torch.core import kernels
 from camouflage_multimodal_tpu_torch.ops.image import gaussian_blur, rgb_to_lab
 from camouflage_multimodal_tpu_torch.ops.regions import index_sum
+from camouflage_multimodal_tpu_torch.parallel.sharding import (
+    all_reduce_, combine_, halo_rows, spatial_rows)
 
 
 def slic_step(n_segments: int, height: int, width: int) -> int:
@@ -176,26 +188,40 @@ def slic_assign(pix: torch.Tensor, centers: torch.Tensor, prev: torch.Tensor,
 # SLIC
 # ---------------------------------------------------------------------------
 
-def slic_features(images: torch.Tensor, n_segments: int = 500):
+_BLUR_RADIUS = int(4.0 * SIGMA + 0.5)   # rows of the Lab blur's stencil on each side
+
+
+def slic_features(images: torch.Tensor, n_segments: int = 500, row_group=None):
     """The SLIC state before the first assignment.
 
-    images (B, H, W, 3) float RGB in [0, 1]. Returns ``(pix (B, HW, 5),
-    centers0 (B, K, 5), step, ratio)``: pixel features (L, a, b, y, x) of
-    the blurred Lab image, centers seeded on skimage's grid, and the spatial
-    weight ``ratio = (compactness / step)²``."""
+    images (B, H, W, 3) float RGB in [0, 1] — under a ``row_group`` this
+    rank's block of rows of (B, H·m, W, 3) images. Returns ``(pix (B, HW,
+    5), centers0 (B, K, 5), step, ratio)``: pixel features (L, a, b, y, x)
+    of the blurred Lab image (global y), centers seeded on skimage's grid of
+    the whole image, and the spatial weight ``ratio = (compactness /
+    step)²``."""
     B, H, W, _ = images.shape
-    step = slic_step(n_segments, H, W)
-    sy = torch.arange(step // 2, H, step, device=images.device)
+    rows, H_all = spatial_rows(H, row_group)
+    step = slic_step(n_segments, H_all, W)
+    sy = torch.arange(step // 2, H_all, step, device=images.device)
     sx = torch.arange(step // 2, W, step, device=images.device)
     gh, gw = len(sy), len(sx)
-    feat = gaussian_blur(rgb_to_lab(images), SIGMA, mode="reflect", channels_last=True)
+    ext, top = halo_rows(images, _BLUR_RADIUS, row_group)
+    feat = gaussian_blur(rgb_to_lab(ext), SIGMA, mode="reflect",
+                         channels_last=True)[:, top:top + H]
 
-    yy = torch.arange(H, dtype=torch.float32, device=images.device)
+    yy = torch.arange(rows.start, rows.stop, dtype=torch.float32, device=images.device)
     xx = torch.arange(W, dtype=torch.float32, device=images.device)
     pos = torch.stack(torch.meshgrid(yy, xx, indexing="ij"), dim=-1)
     pix = torch.cat([feat, pos.expand(B, H, W, 2)], dim=-1).reshape(B, H * W, 5)
 
-    init_color = feat[:, sy][:, :, sx]                                 # (B, gh, gw, 3)
+    # The seed rows this rank holds: grid rows [i0, i1), all of them unsharded.
+    i0, i1 = (min(gh, max(0, -(-(r - step // 2) // step))) for r in (rows.start, rows.stop))
+    init_color = feat[:, sy[i0:i1] - rows.start][:, :, sx]              # (B, i1 - i0, gw, 3)
+    if row_group is not None:                                           # (B, gh, gw, 3) everywhere
+        whole = torch.zeros(B, gh, gw, 3, dtype=feat.dtype, device=feat.device)
+        whole[:, i0:i1] = init_color
+        init_color = combine_(whole, row_group)
     seed = torch.stack(torch.meshgrid(sy.float(), sx.float(), indexing="ij"), dim=-1)
     centers0 = torch.cat([init_color, seed.expand(B, gh, gw, 2)], dim=-1)
     ratio = (COMPACTNESS / step) ** 2
@@ -203,23 +229,26 @@ def slic_features(images: torch.Tensor, n_segments: int = 500):
 
 
 def update_centers(pix: torch.Tensor, labels: torch.Tensor,
-                   centers: torch.Tensor) -> torch.Tensor:
+                   centers: torch.Tensor, row_group=None) -> torch.Tensor:
     """Scatter-form center update: mean (L, a, b, y, x) of each cluster's
-    pixels; clusters with no pixel keep their center."""
+    pixels; clusters with no pixel keep their center. Under a
+    ``row_group`` the moments of every rank's pixels are summed."""
     B, HW, _ = pix.shape
     K = centers.shape[1]
     ones = torch.ones(B, HW, 1, dtype=pix.dtype, device=pix.device)
     idx = (labels.long() + K * torch.arange(B, device=pix.device)[:, None]).reshape(-1)
     moments = index_sum(torch.cat([pix, ones], dim=-1).reshape(-1, 6), idx, B * K)
-    moments = moments.reshape(B, K, 6)
+    moments = all_reduce_(moments.reshape(B, K, 6), row_group)
     count = moments[..., 5:6]
     new = moments[..., :5] / torch.clamp(count, min=1.0)
     return torch.where(count > 0, new, centers)
 
 
 def slic(images: torch.Tensor, n_segments: int = 500, num_iters: int = 10,
-         window_radius: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Raw SLIC cluster ids of (B, H, W, 3) float RGB images in [0, 1].
+         window_radius: int = 3, row_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw SLIC cluster ids of (B, H, W, 3) float RGB images in [0, 1]
+    (under a ``row_group``, the ids of this rank's block of rows; module
+    docstring).
 
     Returns ``(labels (B, H, W) int64 in [0, gh·gw), drift (B,) float32)``,
     what the JAX ``slic(..., enforce_connectivity=False, return_drift=True)``
@@ -228,7 +257,7 @@ def slic(images: torch.Tensor, n_segments: int = 500, num_iters: int = 10,
     assignment saw (``window_radius`` sets only that bound here: B1 sweeps
     all K). Connectivity is a separate pass (:mod:`ops.connectivity`)."""
     B, H, W, _ = images.shape
-    pix, centers, step, ratio = slic_features(images, n_segments)
+    pix, centers, step, ratio = slic_features(images, n_segments, row_group)
     seed_pos = centers[..., 3:5]
     # step == 1 makes the bound 0 at small radii: report raw drift against a
     # floor of 1 px, as the JAX package does.
@@ -239,7 +268,7 @@ def slic(images: torch.Tensor, n_segments: int = 500, num_iters: int = 10,
     if num_iters > 0:
         for _ in range(num_iters - 1):
             labels = slic_assign(pix, centers, labels, ratio, step, width=W)
-            centers = update_centers(pix, labels, centers)
+            centers = update_centers(pix, labels, centers, row_group)
             drift = torch.abs(centers[..., 3:5] - seed_pos).amax(dim=(1, 2))
             maxd = torch.maximum(maxd, drift * inv_bound)
         labels = slic_assign(pix, centers, labels, ratio, step, width=W)

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from camouflage_multimodal_tpu_torch.core.device import resolve_device
+
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
@@ -32,9 +34,9 @@ def initialize(coordinator_address: Optional[str] = None,
     group is already up.
 
     ``coordinator_address`` is ``host:port``. ``device`` (``"cuda"`` or
-    ``"cpu"``) is where the ranks compute: by default the card for
-    ``backend="nccl"``, or for no ``backend`` where a card is visible, and
-    the CPU otherwise. ``backend`` defaults to ``nccl`` on cards and
+    ``"cpu"``) is where the ranks compute: the card by default, which
+    raises where there is none (:func:`core.device.resolve_device`; CPU
+    ranks pass ``"cpu"``). ``backend`` defaults to ``nccl`` on cards and
     ``gloo`` on the CPU (two ranks that share one card need ``gloo`` with
     ``device="cuda"``: NCCL refuses a duplicate GPU). Ranks that compute on
     cards are pinned to ``cuda:LOCAL_RANK`` (the process id when the
@@ -42,6 +44,7 @@ def initialize(coordinator_address: Optional[str] = None,
     and the rendezvous."""
     if dist.is_initialized():
         return
+    device = resolve_device("cuda" if device is None else device).type
     env = os.environ
     if coordinator_address is None and "MASTER_ADDR" in env and "MASTER_PORT" in env:
         coordinator_address = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
@@ -56,9 +59,6 @@ def initialize(coordinator_address: Optional[str] = None,
                          "(or MASTER_ADDR and MASTER_PORT)")
     num_processes = 1 if num_processes is None else num_processes
     process_id = 0 if process_id is None else process_id
-    if device is None:
-        on_card = backend == "nccl" or (backend is None and torch.cuda.is_available())
-        device = "cuda" if on_card else "cpu"
     if backend is None:
         backend = "nccl" if device == "cuda" else "gloo"
     if device == "cuda":

@@ -8,11 +8,16 @@ assignment through kernel B1, drift telemetry), connectivity, Canny,
 region features, 8-connected adjacency, RAG weights, ``RegionGraphGNN``,
 softmax + paint-back, then cross-attention fusion (kernel B2) and its four
 heads. :func:`build_region_graphs_with_labels` is the training variant of
-the graph build, with per-node GT labels. Under a data-parallel mesh
-(``mesh=``, :func:`parallel.sharding.make_mesh`) each rank runs its block
-of the batch and the outputs are gathered, so every rank gets the whole
-batch, as the JAX call returns a global array; spatial sharding
-(``spatial=True``) is not ported.
+the graph build, with per-node GT labels. Under a mesh (``mesh=``,
+:func:`parallel.sharding.make_mesh`) each rank runs its block of the batch
+and the outputs are gathered, so every rank gets the whole batch, as the
+JAX call returns a global array; the ranks of a ``model`` axis larger than
+1 repeat their data rank's work (JAX's ``P("data")`` layout). With
+``spatial=True`` they split the image rows instead
+(:func:`parallel.sharding.shard_spatial`): the graph build runs on each
+rank's rows (``row_group`` of the ops), the GNN and the fusion run on the
+replicated graphs on every rank, each paints its rows, and the heatmap and
+the segment map are gathered whole.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from camouflage_multimodal_tpu_torch.ops.rag import rag_edge_weights, region_adj
 from camouflage_multimodal_tpu_torch.ops.regions import region_features, region_label_means
 from camouflage_multimodal_tpu_torch.ops.slic import grid_shape, slic
 from camouflage_multimodal_tpu_torch.parallel.sharding import (
-    SPATIAL_ITEM, data_group, gather_batch, shard_batch)
+    data_group, gather_batch, gather_dim, model_group, shard_batch, shard_spatial,
+    spatial_rows)
 
 
 class RegionGraphBatch(NamedTuple):
@@ -57,30 +63,35 @@ def padded_nodes(n_segments: int, image_size: int, multiple: int = 128) -> int:
 def build_region_graphs(images: torch.Tensor, n_segments: int = 500,
                         max_nodes: Optional[int] = None, slic_iters: int = 10,
                         window_radius: int = 3,
-                        feature_norm: Optional[int] = None) -> RegionGraphBatch:
+                        feature_norm: Optional[int] = None,
+                        row_group=None) -> RegionGraphBatch:
     """(B, H, W, 3) uint8 or float RGB in [0, 1] → padded graph batch.
 
     ``max_nodes`` defaults to :func:`padded_nodes`; the connectivity pass
     clamps surplus survivors into the last in-bucket label. ``feature_norm``
     None normalizes positions by the image size, 256 reproduces the
-    reference's hard-coded /256."""
+    reference's hard-coded /256. Under a ``row_group`` (spatial sharding)
+    ``images`` is this rank's block of rows and so is ``segments``; the
+    rest is the whole image's, the same on every rank."""
     if images.dtype == torch.uint8:
         images = images.float() / 255.0
     if max_nodes is None:
-        max_nodes = padded_nodes(n_segments, images.shape[1])
+        max_nodes = padded_nodes(n_segments, spatial_rows(images.shape[1], row_group)[1])
     # cmt:: ranges name the stages in a torch.profiler trace (chip_smoke.py
     # --profile); without a profiler each costs about a microsecond.
     with record_function("cmt::slic"):
         raw, drift = slic(images, n_segments=n_segments, num_iters=slic_iters,
-                          window_radius=window_radius)
+                          window_radius=window_radius, row_group=row_group)
     with record_function("cmt::connectivity"):
-        seg = enforce_label_connectivity(raw, n_segments, max_labels=max_nodes)
+        seg = enforce_label_connectivity(raw, n_segments, max_labels=max_nodes,
+                                         row_group=row_group)
     with record_function("cmt::canny"):
-        edges = canny(rgb_to_gray(images), sigma=2.0)
+        edges = canny(rgb_to_gray(images), sigma=2.0, row_group=row_group)
     with record_function("cmt::region_features"):
-        reg = region_features(images, seg, edges, max_nodes, norm_size=feature_norm)
+        reg = region_features(images, seg, edges, max_nodes, norm_size=feature_norm,
+                              row_group=row_group)
     with record_function("cmt::rag"):
-        adj = region_adjacency(seg, max_nodes)
+        adj = region_adjacency(seg, max_nodes, row_group=row_group)
         w = rag_edge_weights(reg["features"], adj)
     return RegionGraphBatch(seg, reg["features"], adj, w, reg["node_mask"], drift)
 
@@ -133,8 +144,10 @@ def paint_segments(segment_values: torch.Tensor, segments: torch.Tensor,
 
 class RegionGraphPipeline:
     """Images → region-graph GNN predictions, for a model on one device, or
-    on every rank of a data-parallel ``mesh`` (each rank's block of the
-    batch, the outputs gathered whole; the batch must divide)."""
+    on every rank of a ``mesh`` (each rank's block of the batch, the outputs
+    gathered whole; the batch must divide), with ``spatial=True`` also each
+    rank's block of image rows over the ``model`` axis (the height must
+    divide; module docstring)."""
 
     def __init__(self, model: RegionGraphGNN, n_segments: int = 500,
                  image_size: int = 256, max_nodes: Optional[int] = None,
@@ -142,12 +155,9 @@ class RegionGraphPipeline:
                  window_radius: int = 3,
                  feature_norm: Optional[int] = None,
                  mesh=None, spatial: bool = False) -> None:
-        if spatial:
-            raise NotImplementedError(
-                f"spatial=True (image rows sharded over the model axis) is not ported yet "
-                f"({SPATIAL_ITEM})")
         data_group(mesh)   # TypeError for anything but a make_mesh mesh
         self.mesh = mesh
+        self.spatial = spatial
         self.model = model.eval()
         self.n_segments = n_segments
         self.image_size = image_size
@@ -157,17 +167,37 @@ class RegionGraphPipeline:
         self.feature_norm = feature_norm
         self.paint_mapping = paint_mapping
 
-    def __call__(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def row_group(self):
+        """The ``model`` group whose ranks split the image rows (None unless
+        ``spatial`` and the mesh's ``model`` axis is larger than 1)."""
+        return model_group(self.mesh) if self.spatial else None
+
+    def run_sharded(self, forward, images: torch.Tensor, *args) -> Dict[str, torch.Tensor]:
+        """``forward(images, *args, row_group=...)`` on this rank's share of
+        ``images`` (the batch over ``data``, the rows over ``model`` when
+        spatial), the per-pixel maps gathered over ``model`` and every
+        output over ``data``."""
         if self.mesh is None:
-            return self.forward(images)
-        return gather_batch(self.forward(shard_batch(images, self.mesh)), self.mesh)
+            return forward(images, *args)
+        group = self.row_group()
+        if group is None:
+            return gather_batch(forward(shard_batch(images, self.mesh), *args), self.mesh)
+        out = forward(shard_spatial(images, self.mesh), *args, row_group=group)
+        for key in ("heatmap", "segments"):
+            out[key] = gather_dim(out[key], 1, group)
+        return gather_batch(out, self.mesh)
+
+    def __call__(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.run_sharded(self.forward, images)
 
     @torch.inference_mode()
-    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The predictions of the images this process holds."""
+    def forward(self, images: torch.Tensor, row_group=None) -> Dict[str, torch.Tensor]:
+        """The predictions of the images this process holds (under a
+        ``row_group``, its block of their rows: ``heatmap`` and ``segments``
+        are its rows, the rest the whole images')."""
         batch = build_region_graphs(images, self.n_segments, self.max_nodes,
                                     self.slic_iters, self.window_radius,
-                                    self.feature_norm)
+                                    self.feature_norm, row_group)
         with record_function("cmt::gnn"):
             out = self.model(batch.features, batch.adjacency, batch.edge_weights,
                              batch.node_mask)
@@ -189,8 +219,9 @@ class RegionGraphPipeline:
 
 
 class MultimodalPipeline:
-    """Images + KG category embeddings → 4-head multimodal predictions, data
-    parallel over the RG pipeline's mesh when it has one."""
+    """Images + KG category embeddings → 4-head multimodal predictions,
+    over the RG pipeline's mesh when it has one (and spatially sharded when
+    it is; the fusion runs whole on every rank)."""
 
     def __init__(self, rg_pipeline: RegionGraphPipeline,
                  fusion_model: MultimodalCamouflageDetector) -> None:
@@ -199,16 +230,14 @@ class MultimodalPipeline:
 
     def __call__(self, images: torch.Tensor, kg_tensor: torch.Tensor
                  ) -> Dict[str, torch.Tensor]:
-        mesh = self.rg.mesh
-        if mesh is None:
-            return self.forward(images, kg_tensor)
-        return gather_batch(self.forward(shard_batch(images, mesh), kg_tensor), mesh)
+        return self.rg.run_sharded(self.forward, images, kg_tensor)
 
     @torch.inference_mode()
-    def forward(self, images: torch.Tensor, kg_tensor: torch.Tensor
-                ) -> Dict[str, torch.Tensor]:
-        """The predictions of the images this process holds."""
-        rg_out = self.rg.forward(images)
+    def forward(self, images: torch.Tensor, kg_tensor: torch.Tensor,
+                row_group=None) -> Dict[str, torch.Tensor]:
+        """The predictions of the images this process holds (of its block
+        of their rows under a ``row_group``, as ``RegionGraphPipeline.forward``)."""
+        rg_out = self.rg.forward(images, row_group)
         B = images.shape[0]
         kg = kg_tensor[None].expand(B, *kg_tensor.shape)
         with record_function("cmt::fusion"):

@@ -13,18 +13,34 @@ where optax divides by ``norm``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Optional[Sequence[bool]] = None,
+                         model_group=None) -> torch.Tensor:
     """In place: scale ``grads`` to a global L2 norm of ``max_norm`` where
     it is larger (``g / norm * max_norm``, as optax). Batched over the list
     and decided on the device: no launch per tensor, no host sync. Returns
-    the norm before clipping."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    the norm before clipping.
+
+    Under tensor parallelism the gradients flagged in ``sharded`` are this
+    rank's shares of gradients split over ``model_group``: their squared
+    norms are summed over the group, the others (replicated, equal on every
+    rank) counted once, so every rank clips by the whole model's norm."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if model_group is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        flags = torch.tensor(list(sharded), dtype=torch.bool, device=norms.device)
+        squares = torch.square(norms)
+        shared = torch.where(flags, squares, 0.0).sum()
+        dist.all_reduce(shared, group=model_group)
+        norm = torch.sqrt(torch.where(flags, 0.0, squares).sum() + shared)
     keep = norm < max_norm
     torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
     torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
@@ -74,12 +90,17 @@ def load_optimizer_arrays(model: torch.nn.Module, optimizer: torch.optim.Optimiz
 
 
 def apply_updates(optimizer: torch.optim.Optimizer, lr: float,
-                  clip_norm: float = 1.0) -> None:
+                  clip_norm: float = 1.0, model_group=None,
+                  sharded_params: Iterable[torch.nn.Parameter] = ()) -> None:
     """One step on the gradients the parameters hold: clip them to
-    ``clip_norm``, step with learning rate ``lr``, clear them."""
-    grads = [p.grad for group in optimizer.param_groups for p in group["params"]
-             if p.grad is not None]
-    clip_by_global_norm_(grads, clip_norm)
+    ``clip_norm``, step with learning rate ``lr``, clear them. Under a
+    ``model_group``, ``sharded_params`` are the parameters split over it
+    (:func:`clip_by_global_norm_`)."""
+    params = [p for group in optimizer.param_groups for p in group["params"]
+              if p.grad is not None]
+    ids = {id(p) for p in sharded_params}
+    clip_by_global_norm_([p.grad for p in params], clip_norm,
+                         [id(p) in ids for p in params], model_group)
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()

@@ -21,8 +21,11 @@ dropout. ``fit`` has two epoch forms: the host loop collates each batch
 with numpy (the JAX ``_fit_loop``), the device-resident form keeps the
 padded dataset on the device, gathers batches by index there and pulls
 losses and predictions once per epoch (the JAX ``_fit_scan``).
-``fit(mesh=)`` trains data-parallel over the ranks of a
-:func:`parallel.sharding.make_mesh` mesh.
+``fit(mesh=)`` trains over the ranks of a :func:`parallel.sharding.make_mesh`
+mesh: the batch over its ``data`` axis and, when its ``model`` axis is
+larger than 1, the cross-attention heads and FFN columns over that axis
+(:func:`parallel.sharding.shard_fusion_params`; checkpoints and the
+returned model hold the whole weights).
 """
 
 from __future__ import annotations
@@ -44,12 +47,15 @@ from camouflage_multimodal_tpu_torch.models.fusion import (
     MultimodalCamouflageDetector, build_multimodal_model)
 from camouflage_multimodal_tpu_torch.models.layers import set_data_group
 from camouflage_multimodal_tpu_torch.parallel.sharding import (
-    all_reduce_grads_, all_reduce_sum, block, data_group, gather_rows, replicate)
+    all_reduce_grads_, all_reduce_sum, block, data_group, fusion_model_group,
+    gather_fusion_moments, gather_fusion_state, gather_rows, replicate, set_model_group,
+    shard_dims, shard_fusion_moments, shard_fusion_params, shard_fusion_state,
+    unshard_fusion_params_)
 from camouflage_multimodal_tpu_torch.train.losses import (
     bce_terms, cross_entropy_terms, focal_terms)
 from camouflage_multimodal_tpu_torch.train.schedules import cosine_warm_restarts
 from camouflage_multimodal_tpu_torch.train.state import (
-    apply_updates, load_optimizer_arrays, make_adamw, optimizer_arrays)
+    apply_updates, load_optimizer_arrays, make_adamw)
 
 Batch = Dict[str, torch.Tensor]
 _BATCH_KEYS = ("rg", "rg_mask", "kg", "y", "edge", "score")
@@ -267,14 +273,20 @@ class FusionTrainer:
         """One optimizer step; returns (summed loss, predictions), both on
         the batch's device. Under a data-parallel ``group`` ``batch`` is this
         rank's block: its summed loss is its share of the global batch's, and
-        the gradients are summed over the ranks before the step."""
+        the gradients are summed over the ranks before the step. A model
+        sharded over a ``model`` group needs no sum there: a sharded
+        parameter holds its own share's gradient and a replicated one the
+        same gradient on every rank; the clip takes the whole norm."""
         self.model.train()
         out = self.model(batch["rg"], batch["kg"], rg_mask=batch["rg_mask"])
         loss = self.batch_loss(out, batch)
         loss.backward()
         if group is not None:
             all_reduce_grads_(self.model.parameters(), group)
-        apply_updates(self.optimizer, lr)
+        model_group = fusion_model_group(self.model)
+        dims = {} if model_group is None else shard_dims(self.model)
+        sharded = [p for name, p in self.model.named_parameters() if name in dims]
+        apply_updates(self.optimizer, lr, model_group=model_group, sharded_params=sharded)
         return loss.detach(), out["mask_logits"].detach().argmax(-1)
 
     @torch.no_grad()
@@ -358,12 +370,19 @@ class FusionTrainer:
     # Checkpoints
     # ------------------------------------------------------------------
 
+    def _whole_optimizer_arrays(self) -> Dict[str, Any]:
+        """``optimizer_arrays`` with the moments of a sharded model gathered
+        whole (every rank of its ``model`` group must call it)."""
+        return {name: {k: v.detach().cpu().numpy() for k, v in st.items()}
+                for name, st in gather_fusion_moments(self.model, self.optimizer).items()}
+
     def _best_payload(self, epoch: int, metrics: Dict[str, float],
                       config: Optional[Dict[str, Any]]) -> Dict[str, Any]:
         """The best-checkpoint payload in the JAX package's layout, so its
-        ``load_multimodal_model`` reads it."""
-        sd = self.model.state_dict()
-        moments = optimizer_arrays(self.model, self.optimizer)
+        ``load_multimodal_model`` reads it; the whole weights also when the
+        model is sharded (every rank of its ``model`` group must call it)."""
+        sd = gather_fusion_state(self.model)
+        moments = self._whole_optimizer_arrays()
         opt_state = {"step": max((int(m["step"]) for m in moments.values()), default=0)}
         for key, name in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
             opt_state[name] = fusion_params_from_state_dict(
@@ -396,10 +415,15 @@ class FusionTrainer:
         JAX ``fit`` forces its scan epochs): every rank samples the same
         batches, runs its block of each, draws dropout and augmentation for
         the whole batch and keeps its rows, and the gradients are summed
-        (the loss is a sum over samples). Predictions are gathered before
-        the F1 scores; every rank returns the same model and history, those
-        of one rank on the whole batch up to float32 summation order; rank 0
-        alone writes files. Returns (the trained model, history)."""
+        (the loss is a sum over samples). With a ``model`` axis larger than
+        1 the model is also sharded over it (:func:`parallel.sharding.
+        shard_fusion_params`) and gathered whole again at the end; the
+        checkpoints hold the whole weights and moments, and a resumed run
+        is sharded again; a fit that raises before that leaves a model that
+        refuses to compute. Predictions are gathered before the F1 scores;
+        every rank returns the same model and history, those of one rank on
+        the whole batch up to float32 summation order; rank 0 alone writes
+        files. Returns (the trained model, history)."""
         group = data_group(mesh)
         if group is not None:
             device_resident = True
@@ -428,6 +452,8 @@ class FusionTrainer:
         self.model.to(dev)
         if group is not None:
             replicate(self.model, mesh)
+            shard_fusion_params(self.model, mesh)
+        sharded = fusion_model_group(self.model) is not None
         set_data_group(self.model, group)
         try:
             self.optimizer = make_adamw(self.model.parameters(), self.weight_decay)
@@ -447,9 +473,11 @@ class FusionTrainer:
             start_epoch = 0
             if resume_from:
                 blob = load_resume_checkpoint(resume_from)
-                self.model.load_state_dict(
-                    {k: torch.from_numpy(np.array(v)) for k, v in blob["model_state"].items()})
-                load_optimizer_arrays(self.model, self.optimizer, blob["optimizer_state"])
+                self.model.load_state_dict(shard_fusion_state(
+                    self.model,
+                    {k: torch.from_numpy(np.array(v)) for k, v in blob["model_state"].items()}))
+                load_optimizer_arrays(self.model, self.optimizer,
+                                      shard_fusion_moments(self.model, blob["optimizer_state"]))
                 rng.bit_generator.state = blob["numpy_rng_state"]
                 dataset.rng.bit_generator.state = blob["dataset_rng_state"]
                 generator.set_state(torch.from_numpy(np.array(blob["generator_state"])))
@@ -486,33 +514,41 @@ class FusionTrainer:
                 if val_f1["f1_class_1"] > best_f1:
                     best_f1 = val_f1["f1_class_1"]
                     patience = 0
-                    if checkpoint_dir and writer:
-                        save_checkpoint(
-                            os.path.join(checkpoint_dir, "multimodal_best_fixed.ckpt"),
-                            self._best_payload(epoch, {
-                                "val_loss": val_loss,
-                                "val_f1_class_1": val_f1["f1_class_1"],
-                                "val_f1_avg": val_f1["f1_avg"],
-                                "val_acc_0": acc_0, "val_acc_1": acc_1}, config))
+                    if checkpoint_dir and (writer or sharded):
+                        payload = self._best_payload(epoch, {
+                            "val_loss": val_loss,
+                            "val_f1_class_1": val_f1["f1_class_1"],
+                            "val_f1_avg": val_f1["f1_avg"],
+                            "val_acc_0": acc_0, "val_acc_1": acc_1}, config)
+                        if writer:
+                            save_checkpoint(os.path.join(checkpoint_dir,
+                                                         "multimodal_best_fixed.ckpt"), payload)
                 else:
                     patience += 1
                     if patience >= max_patience:
                         log_fn(f"Early stopping after {patience} epochs")
                         break
-                if resume_path and writer:
-                    save_resume_checkpoint(
-                        resume_path,
-                        model_state={k: v.detach().cpu().numpy()
-                                     for k, v in self.model.state_dict().items()},
-                        optimizer_state=optimizer_arrays(self.model, self.optimizer), epoch=epoch,
-                        numpy_rng=rng, generator_state=generator.get_state().cpu().numpy(),
-                        history=history, best_val=best_f1,
-                        dataset_rng_state=dataset.rng.bit_generator.state, patience=patience)
+                if resume_path and (writer or sharded):
+                    model_state = {k: v.detach().cpu().numpy()
+                                   for k, v in gather_fusion_state(self.model).items()}
+                    optimizer_state = self._whole_optimizer_arrays()
+                    if writer:
+                        save_resume_checkpoint(
+                            resume_path, model_state=model_state,
+                            optimizer_state=optimizer_state, epoch=epoch,
+                            numpy_rng=rng, generator_state=generator.get_state().cpu().numpy(),
+                            history=history, best_val=best_f1,
+                            dataset_rng_state=dataset.rng.bit_generator.state,
+                            patience=patience)
 
+            unshard_fusion_params_(self.model, self.optimizer)
             if checkpoint_dir and writer:
                 os.makedirs(checkpoint_dir, exist_ok=True)
                 with open(os.path.join(checkpoint_dir, "training_history_fixed.json"), "w") as f:
                     json.dump(history, f, indent=2)
             return self.model, history
         finally:
-            set_data_group(self.model, None)   # the group may not outlive the fit
+            # The groups may not outlive the fit. A fit that raised before
+            # gathering the weights leaves shares that refuse to compute.
+            set_data_group(self.model, None)
+            set_model_group(self.model, None)

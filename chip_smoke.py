@@ -12,9 +12,11 @@ region-graph training (``RGTrainer``), knowledge-graph training with its
 embedding factory (``KGTrainer``), the workflow that joins them
 (extraction → matched fusion dataset → fusion epoch, directory evaluation
 and directory testing), serving through the CLI (``InferenceService``
-behind ``make_server``, ``cli serve`` and six more subcommands), and RG
+behind ``make_server``, ``cli serve`` and six more subcommands), RG
 training, fusion training and directory evaluation data-parallel over
-``torch.distributed`` ranks.
+``torch.distributed`` ranks, and fusion training tensor-parallel over the
+mesh's ``model`` axis with the multimodal pipeline's image rows split over
+it (spatial sharding).
 
 Phases, each failing the run (nonzero exit, no result line) when it fails:
 
@@ -173,6 +175,31 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    B3 as one rank's fusion fit (each step on half the batch), B1 20 in
    evaluation (its half of every batch). A rank that fails or takes more
    than 420 s fails the run;
+9e. the model axis and spatial sharding (``parallel.sharding``): B2 and B3
+   on each model rank's 4 of the 8 heads (E_in 256, E_loc 128, no bo,
+   probabilities over the 8 heads) in both directions of the training
+   bucket at batches 4 and 2 against their plain versions at the bars of
+   phases 3 and 4 (the maps at 1e-3 relative / 1e-5 absolute, below a
+   rank's entries), with and without a cotangent for the maps, repeats
+   bit-equal, one launch a call, the two ranks' outputs plus bo within 1e-4
+   of the whole attention and their maps summed within the maps' bar of
+   the whole map; their device times, plain times and bounds at
+   the (1, 2) fit's shapes. Then phase 6's fusion fit (lr 5e-4, with a best
+   checkpoint) and the multimodal pipeline over the committed weights at
+   batches 1 and 4 (256², 500 segments, 640-node bucket, 10 SLIC
+   iterations) in this process, and two processes of this script on this
+   card (``--mp-rank``, gloo, ``LOCAL_RANK=0``) on a (1, 2) mesh, each
+   running the fit with the heads and FFN columns split over the model axis
+   and the pipeline with ``spatial=True`` (128 rows each): both ranks equal
+   to the bit; the fit's histories and parameters within phase 9d's bars
+   of the one-process fit, its gathered best checkpoint the one-process
+   file's layout within 3·lr, loaded by ``api.load_multimodal_model``; each
+   batch's segments ≥ 99.5 % equal to the unsharded pipeline's, heatmaps
+   within 1e-4 where they agree, equal live-node counts, the fusion's
+   probabilities and score within 1e-3. Each rank's launches: B2 and B3 as
+   one process's fit, B1 10 and B2 2 per pipeline batch. Per-rank seconds
+   are printed (two ranks on one card show correctness, not speed). A rank
+   that fails or takes more than 420 s fails the run;
 10. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel
    (B1 at each pixel-tile shape), the host time to enqueue one call, its
    plain version, ``torch.nn.functional.multi_head_attention_forward``
@@ -1818,17 +1845,19 @@ def dp_expected(np):
              "fused_mha_bwd": 2 * train * TRAIN_EPOCHS})
 
 
-def dp_diffs(torch, np, got, want):
+def dp_diffs(torch, np, got, want, fits=("rg", "fusion")):
     """(history and parameter differences, within the bars) of two fits of
-    ``dp_fits``: histories within rtol 1e-4 (the validation losses 1e-3);
-    parameters 3·lr, RG's BatchNorm-fed biases and running means
-    2·lr·(train steps)."""
+    ``dp_fits`` (of those named in ``fits``): histories within rtol 1e-4
+    (the validation losses 1e-3); parameters 3·lr, RG's BatchNorm-fed
+    biases and running means 2·lr·(train steps)."""
     from camouflage_multimodal_tpu_torch.train import train_rg
 
     rg_steps = RG_EPOCHS * len(train_rg.epoch_order(
         np.random.default_rng(0), range(int(0.8 * RG_IMAGES)), BATCH, False))
     out, ok = {}, True
     for fit, lr in (("rg", DP_RG_LR), ("fusion", DP_FUSION_LR)):
+        if fit not in fits:
+            continue
         rel, absolute = {}, {}
         for key, want_h in want[fit]["history"].items():
             a, b = np.asarray(got[fit]["history"][key]), np.asarray(want_h)
@@ -1996,6 +2025,399 @@ def phase_data_parallel(torch, np, kernels, api, out_dir):
         fail(f"the two ranks' graph builds launched B1 {build} times, expected "
              f"{want_rg['slic_assign']} in all, on both")
     return {"world1": launches, "ranks": per_rank}
+
+
+# ---------------------------------------------------------------------------
+# The model axis and spatial sharding
+# ---------------------------------------------------------------------------
+
+MP_WORLD = 2               # model ranks of the (1, 2) mesh
+MP_HEADS = HEADS // MP_WORLD
+# (name, batch, queries, keys) of B2's and B3's checks on a rank's heads:
+# both directions at the training bucket, at the batch of a (1, 2) fit and at
+# a rank's block of it over a (2, 2) mesh.
+MP_SHAPES = (("rg2kg", BATCH, TRAIN_NODES, 13), ("kg2rg", BATCH, 13, TRAIN_NODES),
+             ("rg2kg_b2", 2, TRAIN_NODES, 13), ("kg2rg_b2", 2, 13, TRAIN_NODES))
+# A rank's map is its heads' share of the mean over all 8, entries of about
+# 1 / Nk / 2 (9e-4 at 576 keys): the absolute bar stays well below that, so a
+# map divided by the rank's 4 heads instead of the 8 (twice as large) fails.
+MP_PROBS_ATOL = 1e-5
+
+
+def rank_params(torch, attention_mod, params, rank, world=MP_WORLD):
+    """Model rank ``rank``'s share of whole attention parameters, as
+    ``parallel.sharding.shard_fusion_params`` cuts it: columns of wq, wk,
+    wv and their biases, rows of wo, no bo."""
+    E = params["wq"].shape[1]
+    cols = slice(rank * E // world, (rank + 1) * E // world)
+    out = {n: (t[:, cols] if n in ("wq", "wk", "wv") else t[cols] if n != "bo" else None)
+           for n, t in params.items()}
+    return {n: (None if t is None else t.contiguous()) for n, t in out.items()}
+
+
+def mp_flops_bytes(Bq, Nq, Nk, e_in, e, e_out, heads, backward):
+    """Operations and bytes of one B2 (or B3) call on a rank's heads, counted
+    as phases 10's do for the whole heads."""
+    if not backward:
+        flops = Bq * (2 * Nq * e_in * e + 4 * Nk * e_in * e + 2 * Nq * e * e_out
+                      + 4 * Nq * Nk * e) + Bq * heads * Nq * Nk * 5
+        nbytes = 4 * (Bq * Nq * e_in + 2 * Bq * Nk * e_in + 3 * e_in * e + e * e_out + 3 * e
+                      + Bq * Nq * e_out + Bq * Nq * Nk) + Bq * Nk
+        return flops, nbytes
+    flops = Bq * (Nq * (4 * e * e_out + 4 * e_in * e) + 8 * Nk * e_in * e + 10 * Nq * Nk * e)
+    nbytes = 4 * (Bq * Nq * (e_in + 2 * e + e_out)       # q, ctx, qp, d_out
+                  + 2 * Bq * Nk * (e_in + e)              # k, v, kp, vp
+                  + Bq * Nq * Nk                          # d_probs
+                  + 2 * (3 * e_in * e + e * e_out)        # weights and their gradients
+                  + Bq * Nq * e_in + 2 * Bq * Nk * e_in   # d_q, d_k, d_v
+                  + 3 * e + e_out) + Bq * Nk              # bias gradients, mask
+    return flops, nbytes
+
+
+def phase_model_axis_kernels(torch, kernels, attention_mod, fusion_model):
+    """B2 and B3 on each model rank's 4 of the 8 heads (E_in 256, E_loc 128)
+    against their plain versions at the bars of phases 3 and 4 (the maps at
+    ``MP_PROBS_ATOL``), repeats bit-equal, one launch a call; the ranks'
+    outputs summed with bo, and their maps summed, against the whole plain
+    attention. Then the device times at the (1, 2) fit's
+    shapes with their bounds. Returns {"max_abs_err", "times"}."""
+    names = attention_mod.PARAM_NAMES
+    worst = 0.0
+    for name, batch, nq, nk in MP_SHAPES:
+        params, q, k, mask = mha_inputs(torch, fusion_model, nq, nk, seed=nq + batch - BATCH,
+                                        batch=batch)
+        want_whole, want_whole_p = attention_mod.multihead_attention(params, q, k, k, HEADS,
+                                                                     mask)
+        leaves, bwd_mask, d_out, d_probs = mha_bwd_case(torch, attention_mod, fusion_model,
+                                                        nq, nk, batch)
+        summed, summed_p = params["bo"].clone(), torch.zeros_like(want_whole_p)
+        for rank in range(MP_WORLD):
+            part = rank_params(torch, attention_mod, params, rank)
+            before = kernels.LAUNCHES["fused_mha"]
+            out, probs = attention_mod.fused_mha(part, q, k, k, MP_HEADS, mask, total_heads=HEADS)
+            torch.cuda.synchronize()
+            launched = kernels.LAUNCHES["fused_mha"] - before
+            again = attention_mod.fused_mha(part, q, k, k, MP_HEADS, mask, total_heads=HEADS)
+            want_out, want_p = attention_mod.multihead_attention(part, q, k, k, MP_HEADS, mask,
+                                                                 total_heads=HEADS)
+            summed, summed_p = summed + out, summed_p + probs
+            e_out = float((out - want_out).abs().max())
+            e_p = float((probs - want_p).abs().max())
+            ok = (torch.allclose(out, want_out, rtol=1e-4, atol=1e-4)
+                  and torch.allclose(probs, want_p, rtol=1e-3, atol=MP_PROBS_ATOL)
+                  and torch.equal(again[0], out) and torch.equal(again[1], probs)
+                  and launched == 1)
+            # B3 on the rank's heads, with and without a cotangent for the maps.
+            q_l, k_l, v_l, *w = leaves
+            whole = dict(zip(names, w))
+            part_leaves = [t.detach().clone().requires_grad_() for t in (q_l, k_l, v_l)] + [
+                t.detach().clone().requires_grad_()
+                for t in rank_params(torch, attention_mod, whole, rank).values() if t is not None]
+            rank_names = [n for n in names if n != "bo"]
+            errs = {}
+            for with_probs in (True, False):
+                dp = d_probs if with_probs else None
+
+                def grads():
+                    qq, kk, vv, *ww = part_leaves
+                    o, pr = attention_mod.fused_mha(dict(zip(rank_names, ww), bo=None), qq, kk,
+                                                    vv, MP_HEADS, bwd_mask, total_heads=HEADS)
+                    if dp is None:
+                        return torch.autograd.grad([o], part_leaves, [d_out])
+                    return torch.autograd.grad([o, pr], part_leaves, [d_out, dp])
+
+                before = kernels.LAUNCHES["fused_mha_bwd"]
+                got = grads()
+                torch.cuda.synchronize()
+                launched_bwd = kernels.LAUNCHES["fused_mha_bwd"] - before
+                repeat = all(torch.equal(a, b) for a, b in zip(got, grads()))
+                qq, kk, vv, *ww = (t.detach() for t in part_leaves)
+                d_params, *d_in = attention_mod.multihead_attention_backward(
+                    dict(zip(rank_names, ww), bo=None), qq, kk, vv, MP_HEADS, bwd_mask, d_out,
+                    dp, total_heads=HEADS)
+                want = (*d_in, *(d_params[n] for n in rank_names))
+                e = {n: float((a - b).abs().max())
+                     for n, a, b in zip(GRAD_NAMES[:3] + tuple(rank_names), got, want)}
+                errs[f"d_probs={with_probs}"] = e
+                ok = (ok and repeat and launched_bwd == 1
+                      and all(bool(torch.isfinite(a).all()) for a in got)
+                      and all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                              for a, b in zip(got, want)))
+                worst = max(worst, *e.values())
+            emit({"phase": "model_axis_kernel_check", "direction": name, "batch": batch,
+                  "nq": nq, "nk": nk, "rank": rank, "heads": MP_HEADS, "total_heads": HEADS,
+                  "e_in": q.shape[-1], "e_loc": part["wq"].shape[1],
+                  "max_abs_err_out": e_out, "max_abs_err_probs": e_p,
+                  "b3_max_abs_err": errs, "ok": ok})
+            if not ok:
+                fail(f"B2 or B3 on rank {rank}'s heads disagrees with its plain version ({name})")
+            worst = max(worst, e_out, e_p)
+        e_sum = float((summed - want_whole).abs().max())
+        e_sum_p = float((summed_p - want_whole_p).abs().max())
+        emit({"phase": "model_axis_partials_sum", "direction": name, "batch": batch,
+              "max_abs_err_vs_whole": e_sum, "max_abs_err_probs_vs_whole": e_sum_p})
+        if not torch.allclose(summed, want_whole, rtol=1e-4, atol=1e-4):
+            fail(f"the ranks' B2 outputs plus bo miss the whole attention ({name}): {e_sum}")
+        if not torch.allclose(summed_p, want_whole_p, rtol=1e-3, atol=MP_PROBS_ATOL):
+            fail(f"the ranks' B2 maps do not sum to the whole map ({name}): {e_sum_p}")
+
+    times = {}
+    for name, batch, nq, nk in MP_SHAPES[:2]:
+        leaves, mask, d_out, _ = mha_bwd_case(torch, attention_mod, fusion_model, nq, nk, batch)
+        q, k, v, *w = leaves
+        part = rank_params(torch, attention_mod, dict(zip(names, w)), 0)
+        part = {n: (None if t is None else t.detach().requires_grad_()) for n, t in part.items()}
+        out, _ = attention_mod.fused_mha(part, q, k, v, MP_HEADS, mask, total_heads=HEADS)
+        inputs = [q, k, v] + [t for t in part.values() if t is not None]
+        detached = {n: (None if t is None else t.detach()) for n, t in part.items()}
+        qd, kd, vd = q.detach(), k.detach(), v.detach()
+        e_in, e_loc = q.shape[-1], part["wq"].shape[1]
+        f2, b2 = mp_flops_bytes(batch, nq, nk, e_in, e_loc, e_in, MP_HEADS, False)
+        f3, b3 = mp_flops_bytes(batch, nq, nk, e_in, e_loc, e_in, MP_HEADS, True)
+        times[name] = {
+            "batch": batch, "nq": nq, "nk": nk, "e_in": e_in, "e_loc": e_loc, "heads": MP_HEADS,
+            "fused_mha_ms": cuda_ms(lambda: attention_mod.fused_mha(
+                detached, qd, kd, vd, MP_HEADS, mask, total_heads=HEADS)),
+            "fused_mha_plain_ms": cuda_ms(lambda: attention_mod.multihead_attention(
+                detached, qd, kd, vd, MP_HEADS, mask, total_heads=HEADS)),
+            "fused_mha_flops": f2, "fused_mha_bytes": b2,
+            "fused_mha_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                [out], inputs, [d_out], retain_graph=True)),
+            "fused_mha_bwd_plain_ms": cuda_ms(lambda: attention_mod.multihead_attention_backward(
+                detached, qd, kd, vd, MP_HEADS, mask, d_out, None, total_heads=HEADS)),
+            "fused_mha_bwd_flops": f3, "fused_mha_bwd_bytes": b3,
+        }
+        for what in ("fused_mha", "fused_mha_bwd"):
+            times[name][f"{what}_bound"] = bound_ms(times[name][f"{what}_bytes"],
+                                                    times[name][f"{what}_flops"])
+        emit({"phase": "model_axis_kernel_time", "direction": name, **times[name]})
+    return {"max_abs_err": worst, "times": times}
+
+
+MP_RANK_TIMEOUT = 420      # seconds a rank of the (1, 2) run may take
+MP_BATCHES = (1, BATCH)    # the spatial pipeline's batches
+
+
+def mp_fit(torch, np, kernels, mesh, checkpoint_dir):
+    """Phase 6's ``FusionTrainer.fit`` (device-resident, dropout 0, the
+    kernels on, lr 5e-4) on its 64 records with ``mesh``, writing its best
+    checkpoint: history, final state on the host, launches (zeroed just
+    before, read just after) and seconds."""
+    from camouflage_multimodal_tpu_torch.train import train_fusion as train_mod
+
+    quiet = dict(log_fn=lambda *_: None)
+    ds = train_mod.FusionDataset.from_samples(train_records(np), **quiet)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_mod.FusionTrainer(model_config={"dropout": 0.0, "use_pallas": True},
+                                      learning_rate=DP_FUSION_LR)
+    model, history = trainer.fit(ds, epochs=TRAIN_EPOCHS, batch_size=BATCH, seed=0,
+                                 device_resident=True, mesh=mesh, device="cuda",
+                                 checkpoint_dir=checkpoint_dir, **quiet)
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0, "launches": dict(kernels.LAUNCHES),
+            "history": history,
+            "state": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+
+
+def mp_spatial(torch, np, kernels, api, mesh):
+    """The multimodal pipeline over the committed weights (256², 500
+    segments, the 640-node bucket, 10 SLIC iterations) with ``mesh`` and
+    ``spatial=True`` (none: the unsharded pipeline) at batches 1 and 4:
+    per batch the outputs on the host, the launches and the seconds."""
+    from camouflage_multimodal_tpu_torch.pipeline import MultimodalPipeline, RegionGraphPipeline
+
+    pred = api.MultimodalPredictor(*ARTIFACTS, device="cuda")
+    rg = RegionGraphPipeline(pred.rg_pipeline.model, n_segments=500, mesh=mesh,
+                             spatial=mesh is not None)
+    pipe = MultimodalPipeline(rg, pred.fusion_model)
+    images = torch.from_numpy(synthetic_images(300, BATCH, SIZE)).cuda()
+    pipe(images[:1], pred.kg_tensor)                   # warm-up
+    torch.cuda.synchronize()
+    out = {}
+    for b in MP_BATCHES:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = pipe(images[:b], pred.kg_tensor)
+        torch.cuda.synchronize()
+        out[b] = {"seconds": time.perf_counter() - t0, "launches": dict(kernels.LAUNCHES),
+                  "outputs": {k: res[k].cpu().numpy() for k in (
+                      "segments", "heatmap", "node_mask", "mask_prob", "instance_prob",
+                      "edge_prob", "score")}}
+    return out
+
+
+def mp_rank_main(torch, np, api, kernels, args):
+    """One rank of the (1, 2) run (``--mp-rank``): the fusion fit over the
+    model axis and the spatial pipeline, in a gloo group of two processes on
+    this card; writes its results to ``--mp-work``."""
+    from camouflage_multimodal_tpu_torch.parallel import distributed, sharding
+
+    torch.set_num_threads(max(1, (os.cpu_count() or MP_WORLD) // MP_WORLD))
+    distributed.initialize(f"127.0.0.1:{args.mp_port}", MP_WORLD, args.mp_rank,
+                           backend="gloo", timeout_s=MP_RANK_TIMEOUT, device="cuda")
+    try:
+        mesh = sharding.make_mesh("cuda", model_axis=MP_WORLD)
+        fit = mp_fit(torch, np, kernels, mesh, os.path.join(args.mp_work, "ckpt"))
+        spatial = mp_spatial(torch, np, kernels, api, mesh)
+    finally:
+        distributed.shutdown()
+    arrays = {f"fit/{k}": v.numpy() for k, v in fit.pop("state").items()}
+    for b, res in spatial.items():
+        arrays.update({f"spatial{b}/{k}": v for k, v in res.pop("outputs").items()})
+    np.savez(os.path.join(args.mp_work, f"rank{args.mp_rank}.npz"), **arrays)
+    with open(os.path.join(args.mp_work, f"rank{args.mp_rank}.json"), "w") as f:
+        json.dump({"fit": fit, "spatial": {str(b): v for b, v in spatial.items()}}, f)
+
+
+def spatial_diffs(np, got, want):
+    """The JAX spatial test's bars on one batch: segments ≥ 99.5 % equal,
+    heatmaps within 1e-4 where they agree, equal live-node counts; the
+    fusion outputs' largest differences (held to 1e-3)."""
+    same = got["segments"] == want["segments"]
+    out = {"segments_equal": float(same.mean()),
+           "heatmap_max_abs_diff_where_equal": float(np.abs(
+               got["heatmap"] - want["heatmap"])[same].max()),
+           "live_nodes": [int(x) for x in got["node_mask"].sum(-1)],
+           "live_nodes_unsharded": [int(x) for x in want["node_mask"].sum(-1)]}
+    out.update({f"{k}_max_abs_diff": float(np.abs(got[k] - want[k]).max())
+                for k in ("mask_prob", "instance_prob", "edge_prob", "score")})
+    ok = (out["segments_equal"] >= 0.995 and out["heatmap_max_abs_diff_where_equal"] <= 1e-4
+          and out["live_nodes"] == out["live_nodes_unsharded"]
+          and all(out[f"{k}_max_abs_diff"] <= 1e-3
+                  for k in ("mask_prob", "instance_prob", "edge_prob", "score")))
+    return out, ok
+
+
+def phase_model_axis(torch, np, kernels, api, out_dir):
+    """Phase 9e, after ``phase_model_axis_kernels``: (b) the one-process
+    references in this process: phase 6's fusion fit with a best checkpoint, and the unsharded
+    multimodal pipeline at batches 1 and 4. (c) Two processes of this
+    script on this one card (``--mp-rank``, gloo, ``LOCAL_RANK=0``) on a
+    (1, 2) mesh, each running the fit over the model axis (4 of the 8
+    heads, E_in 256, E_loc 128) and the spatial pipeline (128 rows each):
+    both ranks equal to the bit; the fit against (b) within phase 9d's bars
+    and its gathered checkpoint the one-process file within them (loaded by
+    ``api.load_multimodal_model``); the spatial outputs against (b) within
+    ``spatial_diffs``; launches per rank as stated. Returns the per-rank
+    launches."""
+    from camouflage_multimodal_tpu_torch.core.checkpoint import load_checkpoint
+
+    _, want_fusion = dp_expected(np)
+    _, fusion_steps = dp_steps(np)
+    work = os.path.join(out_dir, "model_axis")
+    os.makedirs(work)
+    alone_fit = mp_fit(torch, np, kernels, None, os.path.join(work, "ckpt_alone"))
+    alone_spatial = mp_spatial(torch, np, kernels, api, None)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-rank", str(r),
+                               "--mp-port", str(port), "--mp-work", work],
+                              env={**os.environ, "LOCAL_RANK": "0"}, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(MP_WORLD)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=MP_RANK_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            tails = []
+            for q in procs:
+                q.kill()
+                tails.append(q.communicate()[0][-2000:])
+            fail(f"a rank of the (1, 2) run did not finish in {MP_RANK_TIMEOUT} s:\n"
+                 + "\n".join(tails))
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"rank {r} of the (1, 2) run exited {p.returncode}:\n{log[-4000:]}")
+    ranks, arrays = [], []
+    for r in range(MP_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        with np.load(os.path.join(work, f"rank{r}.npz")) as z:
+            arrays.append({k: z[k] for k in z.files})
+    same_ranks = all(np.array_equal(arrays[1][k], v) for k, v in arrays[0].items())
+    got = {"fusion": {"history": ranks[0]["fit"]["history"],
+                      "state": {k[4:]: torch.from_numpy(v) for k, v in arrays[0].items()
+                                if k.startswith("fit/")}}}
+    want = {"fusion": {"history": alone_fit["history"], "state": alone_fit["state"]}}
+    diffs, close = dp_diffs(torch, np, got, want, fits=("fusion",))
+    ckpt = load_checkpoint(os.path.join(work, "ckpt", "multimodal_best_fixed.ckpt"))
+    ckpt_alone = load_checkpoint(os.path.join(work, "ckpt_alone", "multimodal_best_fixed.ckpt"))
+    ckpt_diff = {}
+    for part in ("params", "opt_state"):
+        a, b = flat_tree(ckpt[part]), flat_tree(ckpt_alone[part])
+        if set(a) != set(b) or any(np.shape(a[k]) != np.shape(b[k]) for k in b):
+            fail(f"the gathered checkpoint's {part} differ in layout from the one-process file")
+        ckpt_diff[part] = max(float(np.abs(np.asarray(a[k], np.float64)
+                                           - np.asarray(b[k], np.float64)).max()) for k in b)
+    api.load_multimodal_model(os.path.join(work, "ckpt", "multimodal_best_fixed.ckpt"),
+                              device="cuda")
+    spatial = {}
+    spatial_ok = True
+    for b in MP_BATCHES:
+        mine = {k.split("/", 1)[1]: v for k, v in arrays[0].items()
+                if k.startswith(f"spatial{b}/")}
+        spatial[b], ok = spatial_diffs(np, mine, alone_spatial[b]["outputs"])
+        spatial_ok = spatial_ok and ok
+    fit_b1 = {"slic_assign": 0, "fused_mha": want_fusion["fused_mha"],
+              "fused_mha_bwd": want_fusion["fused_mha_bwd"]}
+    spatial_want = {"slic_assign": SLIC_ITERS, "fused_mha": 2, "fused_mha_bwd": 0}
+    per_rank = [{"fit": res["fit"]["launches"],
+                 **{f"spatial_batch{b}": res["spatial"][str(b)]["launches"] for b in MP_BATCHES}}
+                for res in ranks]
+    times = [{"fit_seconds": res["fit"]["seconds"],
+              "fusion_ms_per_step": res["fit"]["seconds"] * 1e3 / fusion_steps,
+              **{f"spatial_batch{b}_seconds": res["spatial"][str(b)]["seconds"]
+                 for b in MP_BATCHES}} for res in ranks]
+    emit({"phase": "model_axis_two_ranks", "backend": "gloo", "mesh": [1, MP_WORLD],
+          "setup": "two processes sharing one card (cuda:0)", "ranks_equal_to_the_bit": same_ranks,
+          "fit_diffs_to_one_process": diffs["fusion"], "checkpoint_max_abs_diff": ckpt_diff,
+          "spatial_vs_unsharded": {str(b): v for b, v in spatial.items()},
+          "launches_per_rank": per_rank,
+          "expected_launches_per_rank": {"fit": fit_b1, "spatial_per_batch": spatial_want},
+          "times_per_rank": times,
+          "one_process_times": {"fit_seconds": alone_fit["seconds"],
+                                "fusion_ms_per_step": alone_fit["seconds"] * 1e3 / fusion_steps,
+                                **{f"spatial_batch{b}_seconds": alone_spatial[b]["seconds"]
+                                   for b in MP_BATCHES}},
+          "wall_seconds_both_ranks": wall})
+    if not same_ranks:
+        fail("the two ranks of the (1, 2) run end with different results")
+    if not close or ckpt_diff["params"] > 3 * DP_FUSION_LR:
+        fail(f"the (1, 2) fit disagrees with one process: {diffs['fusion']}, "
+             f"checkpoint {ckpt_diff}")
+    if not spatial_ok:
+        fail(f"the spatial pipeline disagrees with the unsharded one: {spatial}")
+    for r, pr in enumerate(per_rank):
+        if pr["fit"] != fit_b1 or any(pr[f"spatial_batch{b}"] != spatial_want
+                                      for b in MP_BATCHES):
+            fail(f"rank {r} of the (1, 2) run launched {pr}")
+    return per_rank
+
+
+def mp_rank_shapes(mp_kernels, what):
+    """The kernel line's numbers at a model rank's shapes (4 of 8 heads, E_in
+    256, E_loc 128, batch 4, both directions of the training bucket)."""
+    times = mp_kernels["times"].values()
+    return {"rank_shapes": "2 launches per step on each of two model ranks: rg2kg (4x576 q, "
+                           "13 k) + kg2rg (4x13 q, 576 k), E_in=256, E_loc=128, 4 of 8 heads",
+            "ms_rank_shapes": sum(v[f"{what}_ms"] for v in times),
+            "plain_ms_rank_shapes": sum(v[f"{what}_plain_ms"] for v in times),
+            "bound_ms_rank_shapes": bound_ms(sum(v[f"{what}_bytes"] for v in times),
+                                             sum(v[f"{what}_flops"] for v in times))[0],
+            "max_abs_err_rank_shapes": mp_kernels["max_abs_err"]}
+
+
+def flat_tree(tree, prefix=""):
+    """{"a/b/c": leaf} of a nested dict."""
+    out = {}
+    for key, node in tree.items():
+        if isinstance(node, dict):
+            out.update(flat_tree(node, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = node
+    return out
 
 
 def dp_total(steps, name) -> int:
@@ -2447,6 +2869,9 @@ def main() -> None:
     ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp-port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp-work", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mp-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mp-work", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     trace = os.path.abspath(args.profile) if args.profile else None
     t_start = time.perf_counter()
@@ -2476,6 +2901,9 @@ def main() -> None:
 
     if args.dp_rank is not None:
         dp_rank_main(torch, np, api, kernels, args)
+        return
+    if args.mp_rank is not None:
+        mp_rank_main(torch, np, api, kernels, args)
         return
     if args.rg_lr_probe:
         phase_build(kernels)
@@ -2507,6 +2935,8 @@ def main() -> None:
         phase_cli_serve(np, served, serve_images)
         phase_cli(torch, np, cli_mod, packages, out_dir)
         dp_launches = phase_data_parallel(torch, np, kernels, api, out_dir)
+        mp_kernels = phase_model_axis_kernels(torch, kernels, attention_mod, fusion_model)
+        mp_launches = phase_model_axis(torch, np, kernels, api, out_dir)
     (b1_ms, b1_host, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
         torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches, trace)
     b3, b3_bound = phase_times_train(torch, kernels, attention_mod, b3_cases, trainer,
@@ -2532,6 +2962,7 @@ def main() -> None:
          "launches_data_parallel_world1": dp_total(dp_launches["world1"], "slic_assign"),
          "launches_data_parallel_per_rank": [dp_total(r, "slic_assign")
                                              for r in dp_launches["ranks"]],
+         "launches_model_axis_per_rank": [dp_total(r, "slic_assign") for r in mp_launches],
          "per_rg_training": "1 launch: one SLIC assignment of 16 images of 256^2 against K=529",
          "max_abs_err": b1["max_abs_err"],
          "ms": b1_ms, "host_ms": b1_host, "plain_ms": b1_plain, "bound_ms": b1_bound[0],
@@ -2548,6 +2979,8 @@ def main() -> None:
          "launches_data_parallel_world1": dp_total(dp_launches["world1"], "fused_mha"),
          "launches_data_parallel_per_rank": [dp_total(r, "fused_mha")
                                              for r in dp_launches["ranks"]],
+         "launches_model_axis_per_rank": [dp_total(r, "fused_mha") for r in mp_launches],
+         **mp_rank_shapes(mp_kernels, "fused_mha"),
          "ms_training_shapes": sum(v["fused_mha_ms"] for v in b3.values()),
          "max_abs_err": b2_err,
          "ms": sum(v["ms"] for v in b2.values()),
@@ -2565,6 +2998,8 @@ def main() -> None:
          "launches_data_parallel_world1": dp_total(dp_launches["world1"], "fused_mha_bwd"),
          "launches_data_parallel_per_rank": [dp_total(r, "fused_mha_bwd")
                                              for r in dp_launches["ranks"]],
+         "launches_model_axis_per_rank": [dp_total(r, "fused_mha_bwd") for r in mp_launches],
+         **mp_rank_shapes(mp_kernels, "fused_mha_bwd"),
          "ms": sum(v["ms"] for v in b3.values()),
          "host_ms": sum(v["host_ms"] for v in b3.values()),
          "ms_no_d_probs": sum(v["ms_no_d_probs"] for v in b3.values()),

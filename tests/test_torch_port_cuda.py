@@ -177,11 +177,11 @@ def test_wrappers_check_inputs(dev):
     with pytest.raises(ValueError, match="multiples of 4"):
         A.fused_mha(small, y, y, y, 4)
     with pytest.raises(TypeError, match="d_out must be float32"):
-        A._check_cotangents(x, 4, x.double(), None)
+        A._check_cotangents(x, 4, x.double(), None, 64)
     with pytest.raises(ValueError, match="d_probs must be"):
-        A._check_cotangents(x, 4, x, torch.zeros(1, 4, 5, device=dev))
+        A._check_cotangents(x, 4, x, torch.zeros(1, 4, 5, device=dev), 64)
     strided = torch.zeros(1, 64, 4, device=dev).transpose(1, 2)
-    assert A._check_cotangents(x, 4, strided, None)[0].is_contiguous()
+    assert A._check_cotangents(x, 4, strided, None, 64)[0].is_contiguous()
 
 
 def test_slic_on_card_matches_cpu(dev):

@@ -419,14 +419,14 @@ def test_bwd_scratch_covers_every_part():
     """The one scratch allocation of a B3 call at the training shapes, part by
     part (the launcher checks the same sum)."""
     n_q, n_k, ee = 4 * 576 * 256, 4 * 13 * 256, 256 * 256 + 256
-    assert A._bwd_scratch_floats(4, 576, 13, 256, 8, 0) == (
+    assert A._bwd_scratch_floats(4, 576, 13, 256, 8, 0, 256, 256) == (
         2 * n_q + 2 * n_k + (2 * 9 + 2 * 1) * ee + 2 * 36 * n_k)
     n_q, n_k = n_k, n_q
-    assert A._bwd_scratch_floats(4, 13, 576, 256, 8, 9) == (
+    assert A._bwd_scratch_floats(4, 13, 576, 256, 8, 9, 256, 256) == (
         2 * n_q + 2 * n_k + (2 * 1 + 2 * 9) * ee + 9 * n_q + 4 * 8 * 13 * 9)
     # One group of rows, one chunk of keys: no partials beside the chunk shares.
-    assert A._bwd_scratch_floats(1, 5, 40, 32, 8, 1) == (
+    assert A._bwd_scratch_floats(1, 5, 40, 32, 8, 1, 32, 32) == (
         2 * 5 * 32 + 2 * 40 * 32 + 4 * (32 * 32 + 32) + 8 * 5)
     # More groups of query rows than the short pass has blocks.
-    assert A._bwd_scratch_floats(1, 2000, 8, 32, 8, 0) == (
+    assert A._bwd_scratch_floats(1, 2000, 8, 32, 8, 0, 32, 32) == (
         2 * 2000 * 32 + 2 * 8 * 32 + (2 * 8 + 2) * (32 * 32 + 32) + 2 * 64 * 8 * 32)

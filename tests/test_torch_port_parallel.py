@@ -183,15 +183,16 @@ def evaluate(img_dir, gt_dir, data_parallel):
 
 
 @contextlib.contextmanager
-def fake_mesh(world):
+def fake_mesh(world, model_axis=1):
     """A (data, model) mesh over ``world`` ranks of torch's fake backend in
-    this process (its collectives do nothing): enough to reach the checks
-    that run before any collective. The group is torn down after."""
+    this process (its collectives do nothing), as rank 0: enough to reach
+    the checks and the cuts that run before any collective. The group is
+    torn down after."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     torch.distributed.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
     try:
-        yield sharding.make_mesh("cpu")
+        yield sharding.make_mesh("cpu", model_axis=model_axis)
     finally:
         distributed.shutdown()
 
@@ -487,8 +488,9 @@ def test_global_batch_indices_match_jax():
 
 def test_initialize_pins_a_card_only_for_ranks_on_cards(monkeypatch):
     """With a card visible, ranks are pinned to ``cuda:LOCAL_RANK`` (the
-    rank without one) when they compute on cards — NCCL, or gloo with
-    ``device="cuda"`` — and never when they compute on the CPU."""
+    rank without one) when they compute on cards — by default, NCCL or
+    gloo, or with ``device="cuda"`` — and never when they compute on the
+    CPU."""
     calls = []
     for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
         monkeypatch.delenv(var, raising=False)
@@ -506,7 +508,7 @@ def test_initialize_pins_a_card_only_for_ranks_on_cards(monkeypatch):
         return list(calls)
 
     assert joined() == [("pin", 1), ("nccl", 1)]
-    assert joined(backend="gloo") == [("gloo", 1)]
+    assert joined(backend="gloo") == [("pin", 1), ("gloo", 1)]
     assert joined(device="cpu") == [("gloo", 1)]
     assert joined(local_rank=0, backend="gloo", device="cuda") == [("pin", 0), ("gloo", 1)]
 
@@ -524,21 +526,74 @@ def test_global_batch_indices_tile_over_two_ranks(runs):
 
 
 def test_mesh_shapes_and_unported_axes(runs):
-    """``make_mesh`` lays (data, model) over the group, at world 1 and 2;
-    the model axis, spatial sharding and tensor sharding raise naming
-    their ROADMAP items."""
+    """``make_mesh`` lays (data, model) over the group, at world 1 and 2,
+    with no model group for a model axis of 1; anything but such a mesh is
+    refused. (The model axis and spatial sharding are ported now: the
+    tests below and ``tests/test_torch_port_model_axis.py`` /
+    ``tests/test_torch_port_spatial.py`` hold them.)"""
     assert json.loads(str(runs["result"]("basics", 1)["shape"])) == {"data": 1, "model": 1}
     assert json.loads(str(runs["result"]("basics", 2)["shape"])) == {"data": 2, "model": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
-        sharding.make_mesh("cpu", model_axis=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
-        sharding.shard_fusion_params({}, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-        sharding.shard_spatial(torch.zeros(1, 8, 8, 3), None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-        RegionGraphPipeline(RegionGraphGNN(), spatial=True)
+    with fake_mesh(2) as mesh:
+        assert sharding.model_group(mesh) is None
     with pytest.raises(TypeError, match="DeviceMesh"):
         RegionGraphPipeline(RegionGraphGNN(), mesh=object())
+
+
+def test_make_mesh_lays_a_model_axis():
+    """``make_mesh(model_axis=2)`` over two ranks lays (1, 2), with a model
+    group of both ranks; an axis that does not divide the world raises."""
+    with fake_mesh(2, model_axis=2) as mesh:
+        assert sharding.mesh_shape(mesh) == {"data": 1, "model": 2}
+        assert torch.distributed.get_world_size(sharding.model_group(mesh)) == 2
+        assert torch.distributed.get_world_size(sharding.data_group(mesh)) == 1
+        with pytest.raises(ValueError, match="does not cover"):
+            sharding.make_mesh("cpu", model_axis=3)
+
+
+def test_shard_fusion_params_keeps_a_ranks_heads():
+    """``shard_fusion_params`` keeps rank 0's columns of wq, wk, wv and its
+    biases, its rows of wo, its fc1 rows and fc2 columns; bo, fc2's bias
+    and every other parameter stay whole; heads that do not divide
+    raise."""
+    model = MultimodalCamouflageDetector(**FUSION_CFG)
+    whole = _state(model)
+    with fake_mesh(2, model_axis=2) as mesh:
+        sharding.shard_fusion_params(model, mesh)
+        got = _state(model)
+        assert sharding.fusion_model_group(model) is sharding.model_group(mesh)
+        with pytest.raises(ValueError, match="heads do not divide"):
+            sharding.shard_fusion_params(MultimodalCamouflageDetector(hidden_dim=48,
+                                                                      num_heads=3), mesh)
+        sharding.set_model_group(model, None)
+    attn, ffn = "fusion.cross_attn_rg2kg.", "fusion.ffn_kg."
+    np.testing.assert_array_equal(got[attn + "wq"], whole[attn + "wq"][:, :32])
+    np.testing.assert_array_equal(got[attn + "bv"], whole[attn + "bv"][:32])
+    np.testing.assert_array_equal(got[attn + "wo"], whole[attn + "wo"][:32])
+    np.testing.assert_array_equal(got[ffn + "fc1.weight"], whole[ffn + "fc1.weight"][:64])
+    np.testing.assert_array_equal(got[ffn + "fc2.weight"], whole[ffn + "fc2.weight"][:, :64])
+    for key in (attn + "bo", ffn + "fc2.bias", "fusion.ln_rg.weight", "mask_head.fc1.weight"):
+        np.testing.assert_array_equal(got[key], whole[key])
+
+
+def test_shard_spatial_keeps_a_ranks_rows():
+    """``shard_spatial`` on a (1, 2) mesh gives rank 0 the top half of
+    every image's rows and the whole batch."""
+    images = torch.arange(2 * 8 * 6 * 3, dtype=torch.float32).reshape(2, 8, 6, 3)
+    with fake_mesh(2, model_axis=2) as mesh:
+        assert torch.equal(sharding.shard_spatial(images, mesh), images[:, :4])
+
+
+def test_spatial_pipeline_without_a_model_axis_is_the_plain_one():
+    """``RegionGraphPipeline(spatial=True)`` builds, and without a mesh
+    (nothing to split) answers as the pipeline without it, to the bit."""
+    model = RegionGraphGNN()
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    images = torch.from_numpy(TinyDataset(2).images)
+    kw = dict(n_segments=16, image_size=48, max_nodes=32, slic_iters=2)
+    got = RegionGraphPipeline(model, spatial=True, **kw)(images)
+    want = RegionGraphPipeline(model, **kw)(images)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
 
 
 def test_shard_and_gather_batch_over_two_ranks(runs):
