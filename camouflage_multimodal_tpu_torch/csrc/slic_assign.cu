@@ -26,22 +26,31 @@
 //   1. The block takes the bounding box of its pixels' (y, x) features (a
 //      warp min/max and one barrier), so the pruning is right for whatever
 //      positions the features hold; the width argument only shapes the tile.
-//   2. It scans the image's K centers cooperatively (every thread looks at
-//      the floored position of up to four, their loads in flight together)
-//      and keeps those that lie within the box grown by step on every side:
-//      a superset of every center that any pixel of the tile has in its own
-//      box, at any center drift. Kept centers are compacted into shared
-//      memory IN ASCENDING ID ORDER (warp ballot + prefix count over the
-//      warps' totals, no atomics): the first design's 7 values and the id,
-//      K x 32 B, since the list must be able to hold all K (centers may
+//   2. It scans the image's K centers cooperatively in chunks of 1,024
+//      (every thread looks at the floored position of up to four, their
+//      loads in flight together) and keeps those that lie within the box
+//      grown by step on every side: a superset of every center that any
+//      pixel of the tile has in its own box, at any center drift. Kept
+//      centers are compacted into shared memory IN ASCENDING ID ORDER (warp
+//      ballot + prefix count over the warps' totals, no atomics): the first
+//      design's 7 values and the id, 32 B a center. The list holds one
+//      chunk, so it has a fixed capacity of min(K, 1,024) centers (32 KB at
+//      most) whatever K is: all 1,024 of a chunk may be kept (centers may
 //      collapse into one tile). At step 11 a 16 x 16 tile lists about 11 of
-//      529 (16 at most on seed and converged centers).
+//      529 (16 at most on seed and converged centers); K <= 1,024 is one
+//      chunk.
 //   3. Each thread runs the first design's loop, unchanged in arithmetic,
-//      over the list: the per-pixel box test, then the distance, `d < best`
-//      strict. Because the list is in ascending id order, the lowest id
-//      still wins a tie.
-// 32 registers a thread keep 8 blocks on an SM, so the 1,024 blocks of a
-// batch of four 256^2 images are one wave. Pixels of a ragged edge (image
+//      over the chunk's list: the per-pixel box test, then the distance,
+//      `d < best` strict. Its best distance and id stay in registers from
+//      one chunk to the next. Because chunks come in ascending id order and
+//      each list is in ascending id order, the lowest id still wins a tie,
+//      across chunk boundaries too.
+// A list sized for all K could not launch above K = 7,264 (227 KB a
+// block), e.g. 416^2 at 12,000 segments (K = 10,816); per-block shared
+// memory no longer grows with K.
+// 32 registers a thread and the 16.9 KB list of K = 529 keep 8 blocks on an
+// SM, so the 1,024 blocks of a batch of four 256^2 images are one wave; the
+// 32 KB list of K > 1,024 leaves room for 6. Pixels of a ragged edge (image
 // sides that are no multiple of the tile) are masked.
 // Loads: features are an array of 20-byte structures; a tile row is one
 // contiguous run (16 px x 20 B = 320 B), which a warp reads as five strided
@@ -65,20 +74,22 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRounds = 4;   // centers a thread looks at in one pass of the scan
+constexpr int kChunk = kThreads * kRounds;   // centers of one pass: the list's capacity
 
 __global__ void __launch_bounds__(kThreads, 2048 / kThreads)   // 32 registers: 8 blocks an SM
 slic_assign_kernel(const float* __restrict__ pix, const float* __restrict__ centers,
                    const int* __restrict__ prev, int* __restrict__ out, int height, int width,
                    int tile_w, int tiles_x, int k_count, float ratio, int step) {
   extern __shared__ float smem[];
+  const int cap = min(k_count, kChunk);
   float* c_l = smem;
-  float* c_a = c_l + k_count;
-  float* c_b = c_a + k_count;
-  float* c_y = c_b + k_count;
-  float* c_x = c_y + k_count;
-  int* c_fy = reinterpret_cast<int*>(c_x + k_count);
-  int* c_fx = c_fy + k_count;
-  int* c_id = c_fx + k_count;
+  float* c_a = c_l + cap;
+  float* c_b = c_a + cap;
+  float* c_y = c_b + cap;
+  float* c_x = c_y + cap;
+  int* c_fy = reinterpret_cast<int*>(c_x + cap);
+  int* c_fx = c_fy + cap;
+  int* c_id = c_fx + cap;
   __shared__ int s_box[4][kWarps];
   __shared__ int s_count[kRounds][kWarps];
 
@@ -117,15 +128,18 @@ slic_assign_kernel(const float* __restrict__ pix, const float* __restrict__ cent
   // far from the ends of int.
   box_y0 -= step, box_y1 += step, box_x0 -= step, box_x1 += step;
 
-  // 2. Candidate centers, compacted in ascending id order. A pass covers
-  //    kRounds * 256 centers (one pass at any K the pipeline uses); thread
-  //    tid looks at center tid + 256 r in round r. The rounds' position
-  //    loads are independent and in flight together; a kept center is read
-  //    again (from L1) when it is written to the list, so that no round's
-  //    values are held in registers across the barrier.
   const float* cb = centers + static_cast<size_t>(b) * k_count * 5;
-  int listed = 0;
-  for (int k0 = 0; k0 < k_count; k0 += kThreads * kRounds) {
+  float best = INFINITY;
+  int label = -1;
+  for (int k0 = 0; k0 < k_count; k0 += kChunk) {
+    // 2. The chunk's candidate centers, compacted in ascending id order.
+    //    Thread tid looks at center k0 + tid + 256 r in round r. The rounds'
+    //    position loads are independent and in flight together; a kept
+    //    center is read again (from L1) when it is written to the list, so
+    //    that no round's values are held in registers across the barrier.
+    //    The previous chunk's list and counts are free again here: every
+    //    thread passed the barrier after the compaction before reading the
+    //    list, and reaches the barrier below only after its assignment loop.
     unsigned kept[kRounds];
 #pragma unroll
     for (int r = 0; r < kRounds; ++r) {
@@ -140,6 +154,7 @@ slic_assign_kernel(const float* __restrict__ pix, const float* __restrict__ cent
       if (lane == 0) s_count[r][warp] = __popc(kept[r]);
     }
     __syncthreads();
+    int listed = 0;
 #pragma unroll
     for (int r = 0; r < kRounds; ++r) {
       int before = listed;
@@ -156,30 +171,28 @@ slic_assign_kernel(const float* __restrict__ pix, const float* __restrict__ cent
         c_fy[at] = __float2int_rd(c[3]), c_fx[at] = __float2int_rd(c[4]), c_id[at] = k;
       }
     }
-    __syncthreads();   // s_count is rewritten by the next pass; the list is read below
-  }
+    __syncthreads();   // the list is complete
 
-  // 3. The assignment over the list.
-  if (!active) return;
-  float best = INFINITY;
-  int label = -1;
-  for (int i = 0; i < listed; ++i) {
-    if (abs(iy - c_fy[i]) > step || abs(ix - c_fx[i]) > step) continue;
-    const float ey = __fsub_rn(py, c_y[i]);
-    const float ex = __fsub_rn(px, c_x[i]);
-    float d = __fmul_rn(ratio, __fadd_rn(__fmul_rn(ey, ey), __fmul_rn(ex, ex)));
-    const float el = __fsub_rn(pl, c_l[i]);
-    d = __fadd_rn(d, __fmul_rn(el, el));
-    const float ea = __fsub_rn(pa, c_a[i]);
-    d = __fadd_rn(d, __fmul_rn(ea, ea));
-    const float eb = __fsub_rn(pb, c_b[i]);
-    d = __fadd_rn(d, __fmul_rn(eb, eb));
-    if (d < best) {  // strict, and ids ascend along the list: the lowest id wins a tie
-      best = d;
-      label = c_id[i];
+    // 3. The assignment over the chunk's list.
+    if (!active) continue;
+    for (int i = 0; i < listed; ++i) {
+      if (abs(iy - c_fy[i]) > step || abs(ix - c_fx[i]) > step) continue;
+      const float ey = __fsub_rn(py, c_y[i]);
+      const float ex = __fsub_rn(px, c_x[i]);
+      float d = __fmul_rn(ratio, __fadd_rn(__fmul_rn(ey, ey), __fmul_rn(ex, ex)));
+      const float el = __fsub_rn(pl, c_l[i]);
+      d = __fadd_rn(d, __fmul_rn(el, el));
+      const float ea = __fsub_rn(pa, c_a[i]);
+      d = __fadd_rn(d, __fmul_rn(ea, ea));
+      const float eb = __fsub_rn(pb, c_b[i]);
+      d = __fadd_rn(d, __fmul_rn(eb, eb));
+      if (d < best) {  // strict, and ids ascend along the lists: the lowest id wins a tie
+        best = d;
+        label = c_id[i];
+      }
     }
   }
-  out[gp] = label >= 0 ? label : prev[gp];
+  if (active) out[gp] = label >= 0 ? label : prev[gp];
 }
 
 }  // namespace
@@ -198,7 +211,8 @@ CMT_EXPORT int slic_assign(const float* pix, const float* centers,
   const int tile_h = kThreads / tile_w;
   const int tiles_x = (width + tile_w - 1) / tile_w;
   const int tiles_y = (height + tile_h - 1) / tile_h;
-  const size_t smem = static_cast<size_t>(k_count) * 8 * sizeof(float);
+  // One chunk's list: 8 words a center, at most 32 KB whatever K is.
+  const size_t smem = static_cast<size_t>(min(k_count, kChunk)) * 8 * sizeof(float);
   int rc = cmt_set_smem(slic_assign_kernel, smem);
   if (rc != 0) return rc;
   dim3 grid(tiles_x * tiles_y, batch);

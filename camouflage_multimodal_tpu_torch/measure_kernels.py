@@ -22,6 +22,7 @@ Prints one JSON object per line.
 from __future__ import annotations
 
 import json
+import importlib
 import subprocess
 import sys
 import time
@@ -30,7 +31,8 @@ import torch
 
 from camouflage_multimodal_tpu_torch.core import kernels
 from camouflage_multimodal_tpu_torch.ops import attention as A
-from camouflage_multimodal_tpu_torch.ops import slic as S
+
+S = importlib.import_module("camouflage_multimodal_tpu_torch.ops.slic")   # ops.slic is the function
 
 E, HEADS, BATCH = 256, 8, 4
 

@@ -1,4 +1,4 @@
-"""Canny edge detection (``skimage.feature.canny(gray, sigma=2)``), batched.
+"""Canny edge detection (``skimage.feature.canny``), batched.
 
 Port of ``camouflage_multimodal_tpu/ops/canny.py``: border-compensated
 Gaussian smoothing, Sobel gradients, bilinear non-maximum suppression and
@@ -8,7 +8,7 @@ point. The gradient magnitude uses JAX's ``hypot`` formula
 
 Under spatial sharding (``row_group``: each rank holds a block of rows) the
 stencils run on the rank's rows extended by ``radius + 2`` rows of each
-neighbour (the blur's radius, one row for Sobel and one for the
+neighbour (the blur's radius ``image.blur_radius(sigma)``, one row for Sobel and one for the
 non-maximum suppression), so each pads only at the image's global top and
 bottom and the rank's rows come out as without sharding, to the bit. The
 hysteresis is a fixed point over the whole image that runs many dilation
@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from camouflage_multimodal_tpu_torch.ops.image import gaussian_blur, sobel_h, sobel_v
+from camouflage_multimodal_tpu_torch.ops.image import blur_radius, gaussian_blur, sobel_h, sobel_v
 from camouflage_multimodal_tpu_torch.ops.morphology import _shift, binary_dilation_full
 from camouflage_multimodal_tpu_torch.parallel.sharding import gather_dim, halo_rows
 
@@ -98,26 +98,29 @@ def _hysteresis(low_mask: torch.Tensor, high_mask: torch.Tensor) -> torch.Tensor
             return cur
 
 
-def canny(gray: torch.Tensor, sigma: float = 2.0, row_group=None) -> torch.Tensor:
-    """Canny edges of float (..., H, W) images in [0, 1] → bool maps, with
-    skimage's float-image thresholds (low 0.1, high 0.2). Under a
+def canny(gray: torch.Tensor, sigma: float = 2.0, low_threshold: float = 0.1,
+          high_threshold: float = 0.2, row_group=None) -> torch.Tensor:
+    """Canny edges of float (..., H, W) images in [0, 1] → bool maps. The
+    default thresholds are skimage's for float images. Under a
     ``row_group``, ``gray`` is this rank's block of rows and so is the
     result (module docstring)."""
+    thresholds = (low_threshold, high_threshold)
     if row_group is None:
-        return _hysteresis(*_threshold_masks(gray, sigma))
+        return _hysteresis(*_threshold_masks(gray, sigma, *thresholds))
     rows = gray.shape[-2]
-    ext, top = halo_rows(gray, int(4.0 * sigma + 0.5) + 2, row_group, dim=-2)
-    low, high = (m.narrow(-2, top, rows) for m in _threshold_masks(ext, sigma))
+    ext, top = halo_rows(gray, blur_radius(sigma) + 2, row_group, dim=-2)
+    low, high = (m.narrow(-2, top, rows) for m in _threshold_masks(ext, sigma, *thresholds))
     whole = gather_dim(torch.stack([low, high]), low.ndim - 1, row_group)
     return _hysteresis(whole[0], whole[1]).narrow(-2, rows * dist.get_rank(row_group), rows)
 
 
-def _threshold_masks(gray: torch.Tensor, sigma: float):
+def _threshold_masks(gray: torch.Tensor, sigma: float, low_threshold: float = 0.1,
+                     high_threshold: float = 0.2):
     """Canny's low and high masks: local maxima of the gradient magnitude
-    at or above 0.1 and 0.2."""
+    at or above the two thresholds."""
     smoothed, eroded = _preprocess(gray, sigma)
     gy = sobel_h(smoothed)
     gx = sobel_v(smoothed)
     mag = _hypot(gy, gx)
     local_max = _nonmax_suppression(gy, gx, mag, eroded)
-    return local_max & (mag >= 0.1), local_max & (mag >= 0.2)
+    return local_max & (mag >= low_threshold), local_max & (mag >= high_threshold)

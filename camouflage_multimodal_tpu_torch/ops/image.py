@@ -3,14 +3,19 @@
 Port of ``camouflage_multimodal_tpu/ops/image.py``. Images are channels-last
 ``(..., H, W, 3)`` tensors like the JAX package's. The blur and Sobel filters
 are separable sums of shifted slices, not cuDNN convolutions (which run in
-TF32 on Hopper by default); "reflect" padding is scipy's, i.e. numpy's
-``symmetric`` mode (edge value repeated), which ``torch.nn.functional.pad``
-does not offer, so :func:`_pad_axis` builds it from slices.
+TF32 on Hopper by default). Border modes are scipy's, as the JAX package
+pads them: "reflect" is numpy's ``symmetric`` (edge value repeated), which
+``torch.nn.functional.pad`` does not offer, "mirror" numpy's ``reflect``,
+"nearest" the edge value and "constant" zeros; :func:`_pad_axis` builds
+each from slices.
 """
 
 from __future__ import annotations
 
 import torch
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 GRAY_WEIGHTS = (0.2989, 0.5870, 0.1140)
 
@@ -27,26 +32,53 @@ def _dot3(img: torch.Tensor, w) -> torch.Tensor:
     return img[..., 0] * w[0] + img[..., 1] * w[1] + img[..., 2] * w[2]
 
 
+def imagenet_normalize(img: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) float image in [0, 1] → ImageNet-normalized."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=img.dtype, device=img.device)
+    std = torch.tensor(IMAGENET_STD, dtype=img.dtype, device=img.device)
+    return (img - mean) / std
+
+
+def imagenet_denormalize(img: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`imagenet_normalize`, clipped to [0, 1] as the
+    reference does."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=img.dtype, device=img.device)
+    std = torch.tensor(IMAGENET_STD, dtype=img.dtype, device=img.device)
+    return torch.clamp(img * std + mean, 0.0, 1.0)
+
+
 def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 3) → (..., H, W) with the reference's weights."""
     w = torch.tensor(GRAY_WEIGHTS, dtype=img.dtype, device=img.device)
     return _dot3(img, w)
 
 
-def _gaussian_kernel1d(sigma: float, device) -> torch.Tensor:
-    """scipy.ndimage._gaussian_kernel1d weights (radius = 4·σ + 0.5, scipy's
-    default truncation)."""
-    radius = int(4.0 * sigma + 0.5)
+def blur_radius(sigma: float, truncate: float = 4.0) -> int:
+    """Rows (and columns) that :func:`gaussian_blur` reads on each side of a
+    pixel: scipy's ``int(truncate·σ + 0.5)``, 0 for ``sigma <= 0`` (no
+    blur)."""
+    return int(truncate * sigma + 0.5) if sigma > 0 else 0
+
+
+def _gaussian_kernel1d(sigma: float, device, truncate: float = 4.0) -> torch.Tensor:
+    """scipy.ndimage._gaussian_kernel1d weights (radius ``int(truncate·σ +
+    0.5)``)."""
+    radius = blur_radius(sigma, truncate)
     x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=device)
     k = torch.exp(-0.5 * (x / sigma) ** 2)
     return k / torch.sum(k)
 
 
 def _pad_axis(x: torch.Tensor, pad: int, dim: int, mode: str) -> torch.Tensor:
-    """Pad ``dim`` by ``pad`` on both sides: scipy "reflect" (numpy
-    'symmetric': a b c | c b a) or zeros ("constant")."""
+    """Pad ``dim`` by ``pad`` on both sides in a scipy border mode:
+    "reflect" (numpy 'symmetric': b a | a b c ...), "mirror" (numpy
+    'reflect': c b | a b c ..., the edge not repeated), "nearest" (the edge
+    value) or "constant" (zeros)."""
     n = x.shape[dim]
-    if pad > n:
+    if mode == "mirror":
+        if pad >= n:
+            raise ValueError(f"pad {pad} needs an axis longer than {n} in mode 'mirror'")
+    elif pad > n:
         raise ValueError(f"pad {pad} exceeds axis length {n}")
     if mode == "constant":
         shape = list(x.shape)
@@ -55,8 +87,15 @@ def _pad_axis(x: torch.Tensor, pad: int, dim: int, mode: str) -> torch.Tensor:
     elif mode == "reflect":
         head = x.narrow(dim, 0, pad).flip(dim)
         tail = x.narrow(dim, n - pad, pad).flip(dim)
+    elif mode == "mirror":
+        head = x.narrow(dim, 1, pad).flip(dim)
+        tail = x.narrow(dim, n - 1 - pad, pad).flip(dim)
+    elif mode == "nearest":
+        head = x.narrow(dim, 0, 1).expand_as(x.narrow(dim, 0, pad))
+        tail = x.narrow(dim, n - 1, 1).expand_as(head)
     else:
-        raise ValueError(f"unknown pad mode {mode!r}: use 'reflect' or 'constant'")
+        raise ValueError(f"unknown pad mode {mode!r}: use 'reflect', 'mirror', "
+                         "'nearest' or 'constant'")
     return torch.cat([head, x, tail], dim=dim)
 
 
@@ -72,16 +111,17 @@ def _correlate_valid(x: torch.Tensor, k: torch.Tensor, dim: int) -> torch.Tensor
 
 
 def gaussian_blur(img: torch.Tensor, sigma: float, mode: str = "reflect",
-                  channels_last: bool = False) -> torch.Tensor:
-    """Separable Gaussian blur matching ``scipy.ndimage.gaussian_filter``.
+                  truncate: float = 4.0, channels_last: bool = False) -> torch.Tensor:
+    """Separable Gaussian blur matching ``scipy.ndimage.gaussian_filter``
+    (kernel radius ``int(truncate·σ + 0.5)``, :func:`blur_radius`).
 
     ``img`` is (..., H, W), or (..., H, W, C) with ``channels_last``. Rows
     are filtered first, then columns, like the JAX version."""
     if sigma <= 0:
         return img
     if channels_last:
-        return gaussian_blur(img.movedim(-1, -3), sigma, mode).movedim(-3, -1)
-    k = _gaussian_kernel1d(sigma, img.device).to(img.dtype)
+        return gaussian_blur(img.movedim(-1, -3), sigma, mode, truncate).movedim(-3, -1)
+    k = _gaussian_kernel1d(sigma, img.device, truncate).to(img.dtype)
     pad = (k.shape[0] - 1) // 2
     x = _pad_axis(_pad_axis(img, pad, -2, mode), pad, -1, mode)
     x = _correlate_valid(x, k, dim=-1)   # rows (along W)
@@ -89,24 +129,24 @@ def gaussian_blur(img: torch.Tensor, sigma: float, mode: str = "reflect",
     return x
 
 
-def _sobel(img: torch.Tensor, dim: int) -> torch.Tensor:
-    """scipy.ndimage.sobel (mode "reflect"): [-1, 0, 1] along ``dim``, then
-    [1, 2, 1] along the other of the last two axes."""
+def _sobel(img: torch.Tensor, dim: int, mode: str) -> torch.Tensor:
+    """scipy.ndimage.sobel: [-1, 0, 1] along ``dim``, then [1, 2, 1] along
+    the other of the last two axes, each padded in ``mode``."""
     other = -1 if dim == -2 else -2
     deriv = torch.tensor([-1.0, 0.0, 1.0], dtype=img.dtype, device=img.device)
     smooth = torch.tensor([1.0, 2.0, 1.0], dtype=img.dtype, device=img.device)
-    x = _correlate_valid(_pad_axis(img, 1, dim, "reflect"), deriv, dim)
-    return _correlate_valid(_pad_axis(x, 1, other, "reflect"), smooth, other)
+    x = _correlate_valid(_pad_axis(img, 1, dim, mode), deriv, dim)
+    return _correlate_valid(_pad_axis(x, 1, other, mode), smooth, other)
 
 
-def sobel_h(img: torch.Tensor) -> torch.Tensor:
-    """scipy.ndimage.sobel(img, axis=0): derivative along rows (y)."""
-    return _sobel(img, dim=-2)
+def sobel_h(img: torch.Tensor, mode: str = "reflect") -> torch.Tensor:
+    """scipy.ndimage.sobel(img, axis=0, mode=mode): derivative along rows (y)."""
+    return _sobel(img, dim=-2, mode=mode)
 
 
-def sobel_v(img: torch.Tensor) -> torch.Tensor:
-    """scipy.ndimage.sobel(img, axis=1): derivative along cols (x)."""
-    return _sobel(img, dim=-1)
+def sobel_v(img: torch.Tensor, mode: str = "reflect") -> torch.Tensor:
+    """scipy.ndimage.sobel(img, axis=1, mode=mode): derivative along cols (x)."""
+    return _sobel(img, dim=-1, mode=mode)
 
 
 def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:

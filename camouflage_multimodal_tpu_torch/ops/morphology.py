@@ -1,8 +1,9 @@
 """Binary morphology as shifted ORs.
 
-Port of the part of ``camouflage_multimodal_tpu/ops/morphology.py`` the
-inference path runs: the zero-filled shift and the 8-connected 3×3 dilation
-of Canny's hysteresis, over the last two axes.
+Port of ``camouflage_multimodal_tpu/ops/morphology.py``: the zero-filled
+shift and the iterated 4-connected (scipy's default cross) and 8-connected
+(3×3) dilations, over the last two axes. Canny's hysteresis runs one
+8-connected dilation a step.
 """
 
 from __future__ import annotations
@@ -19,12 +20,24 @@ def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     return out
 
 
-def binary_dilation_full(mask: torch.Tensor) -> torch.Tensor:
-    """One 8-connected (3×3 square) binary dilation."""
+def binary_dilation_cross(mask: torch.Tensor, iterations: int = 1) -> torch.Tensor:
+    """4-connected binary dilation, iterated: ``scipy.ndimage.binary_dilation
+    (mask, iterations=n)``."""
     out = mask.bool()
-    acc = out
-    for dy in (-1, 0, 1):
-        for dx in (-1, 0, 1):
-            if dy or dx:
-                acc = acc | _shift(out, dy, dx)
-    return acc
+    for _ in range(iterations):
+        out = (out | _shift(out, 1, 0) | _shift(out, -1, 0)
+               | _shift(out, 0, 1) | _shift(out, 0, -1))
+    return out
+
+
+def binary_dilation_full(mask: torch.Tensor, iterations: int = 1) -> torch.Tensor:
+    """8-connected (3×3 square) binary dilation, iterated."""
+    out = mask.bool()
+    for _ in range(iterations):
+        acc = out
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dy or dx:
+                    acc = acc | _shift(out, dy, dx)
+        out = acc
+    return out

@@ -30,7 +30,7 @@ from torch.profiler import record_function
 from camouflage_multimodal_tpu_torch.models.fusion import MultimodalCamouflageDetector
 from camouflage_multimodal_tpu_torch.models.region_graph import RegionGraphGNN
 from camouflage_multimodal_tpu_torch.ops.canny import canny
-from camouflage_multimodal_tpu_torch.ops.connectivity import enforce_label_connectivity
+from camouflage_multimodal_tpu_torch.ops.connectivity import enforce_label_connectivity_batched
 from camouflage_multimodal_tpu_torch.ops.image import rgb_to_gray
 from camouflage_multimodal_tpu_torch.ops.rag import rag_edge_weights, region_adjacency
 from camouflage_multimodal_tpu_torch.ops.regions import region_features, region_label_means
@@ -81,10 +81,11 @@ def build_region_graphs(images: torch.Tensor, n_segments: int = 500,
     # --profile); without a profiler each costs about a microsecond.
     with record_function("cmt::slic"):
         raw, drift = slic(images, n_segments=n_segments, num_iters=slic_iters,
+                          backend="exact", enforce_connectivity=False, return_drift=True,
                           window_radius=window_radius, row_group=row_group)
     with record_function("cmt::connectivity"):
-        seg = enforce_label_connectivity(raw, n_segments, max_labels=max_nodes,
-                                         row_group=row_group)
+        seg = enforce_label_connectivity_batched(raw, n_segments, max_labels=max_nodes,
+                                                 row_group=row_group)
     with record_function("cmt::canny"):
         edges = canny(rgb_to_gray(images), sigma=2.0, row_group=row_group)
     with record_function("cmt::region_features"):

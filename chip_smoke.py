@@ -35,6 +35,23 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    be equal (both compute the same float32 operations in the same order, so
    there are no ties to excuse). Prints the mean and the largest length of
    the kernel's per-tile candidate lists;
+2b. the ops library at the JAX package's contract (``ops_surface``): B1
+   against its plain version at K = 10,816 (416², 12,000 segments) and
+   K = 7,744 (352², 8,000), beyond one 1,024-center chunk of its candidate
+   list, on seed and fifth-iteration centers, with its time, device time a
+   launch (``torch.profiler``), plain time and bound; B1 at the main path's
+   K = 529 (4 × 256²) giving the digests of the kernel before its list was
+   chunked, with the same times; ``slic`` with each backend (``"window"``,
+   ``"exact"``) on the card against the CPU on one 352² image at
+   compactness 20 with RGB features: ≥ 99.5 % of labels equal; the
+   connectivity dispatcher against the per-pixel path on raw maps of 4 ×
+   256², 16 × 352² and 16 × 416² seeded images (500 segments): labels equal
+   to the bit, the fallback flag, the runs path's labels and counts, rounds
+   and raw components equal to the CPU's per-pixel path, and the per-pixel
+   and runs paths' host ms and event ms (each call ending in a device→host
+   pull) and device busy ms (``torch.profiler``);
+   Canny at thresholds (0.05, 0.15) and (0.2, 0.4) on contrast-stretched
+   images, card vs CPU: at most 0.1 % of pixels differ;
 3. kernel B2 ``fused_mha`` against its plain version with the committed
    fusion weights in both directions of the main path (4 × 640 queries ×
    13 keys and 4 × 13 queries × 640 keys, partial key masks), the same at
@@ -240,6 +257,7 @@ matmuls and cuDNN: every reference number is float32.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import subprocess
@@ -480,6 +498,218 @@ def check_slic_batch(torch, slic_mod, images_u8, what: str) -> int:
     return check_slic_cases(torch, slic_mod, [
         (f"{what}_{n}_seed", SIZE, SIZE, pix, c0, torch.zeros_like(prev5), step, ratio),
         (f"{what}_{n}_iter5", SIZE, SIZE, pix, c5, prev5, step, ratio)])
+
+
+# The ops library at the JAX package's contract (phase 2b).
+OPS_LARGE_K = ((416, 12000), (352, 8000))          # K = 10,816 and 7,744
+# SHA-256 (first 16 hex digits) of B1's labels at the main path's K = 529 on
+# phase 2b's inputs (4 images ``synthetic_images(263, 4, 256)``, seed and
+# fifth-iteration centers) from the kernel before its candidate list was
+# chunked (the whole list in shared memory), on an H100: the chunked kernel
+# must give the same bits.
+B1_K529_DIGESTS = {"seed": "041cc9ea8daf47fb", "iter5": "1dee6b7cb9e61633"}
+CONN_SIZES = ((4, 256), (16, 352), (16, 416))      # (batch, size) of the raw maps
+CONN_REPS = 5
+SLIC_BACKEND_SIZE = 352
+CANNY_THRESHOLDS = ((0.05, 0.15), (0.2, 0.4))
+
+
+def device_ms_per_launch(torch, fn, kernel: str, calls: int = 20):
+    """Mean device time of one launch of the CUDA kernel named ``kernel``
+    over ``calls`` calls of ``fn`` under ``torch.profiler`` ("not measured"
+    when three windows come back without a record of it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA and kernel in ev.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+    return "not measured"
+
+
+def b1_times(torch, slic_mod, pix, centers, prev, step, ratio, width):
+    """B1's time as called, its device time a launch, its plain version's
+    time and its bound on these inputs."""
+    def call():
+        return slic_mod.slic_assign(pix, centers, prev, ratio, step, width=width)
+
+    B, HW, _ = pix.shape
+    pairs = in_box_pairs(torch, pix, centers, step)
+    bound = bound_ms(B * HW * (5 * 4 + 4 + 4) + B * centers.shape[1] * 5 * 4, pairs * 16)
+    return {"ms": cuda_ms(call, reps=50),
+            "device_ms": device_ms_per_launch(torch, call, "slic_assign_kernel"),
+            "plain_ms": cuda_ms(lambda: slic_mod.slic_assign_plain(pix, centers, prev, ratio, step),
+                                reps=2, rounds=3),
+            "bound_ms": bound[0], "bound_by": bound[1], "in_box_pairs": pairs}
+
+
+def label_digest(labels) -> str:
+    import hashlib
+
+    return hashlib.sha256(labels.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def timed_path(torch, fn, reps: int = CONN_REPS):
+    """Median host ms and event ms of ``fn()``, each call ending in a
+    device→host pull of its output, and its device busy ms a call. The
+    events are recorded around host-synchronising code, so their interval
+    is wall time between enqueues, close to the host ms whatever the card
+    does; the busy time (``torch.profiler``) is the card's own."""
+    host, dev = [], []
+    out = fn()
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        labels = out[0] if isinstance(out, tuple) else out
+        labels.reshape(-1)[-1].item()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(end))
+    return sorted(host)[reps // 2], sorted(dev)[reps // 2], device_busy_ms(torch, fn, reps)
+
+
+def is_card_event(ev) -> bool:
+    """A kernel or a copy of a ``torch.profiler`` trace: not a host range
+    mirrored onto the card's timeline (the cmt:: stages, the optimizer's
+    step annotation)."""
+    from torch.autograd import DeviceType
+
+    return (ev.device_type == DeviceType.CUDA and not ev.name.startswith("cmt::")
+            and not getattr(ev, "is_user_annotation", False)
+            and not ev.name.startswith("Optimizer."))
+
+
+def device_busy_ms(torch, fn, calls: int):
+    """Device busy ms a call of ``fn()`` (the union of its kernels' and
+    copies' spans) over ``calls`` calls under ``torch.profiler`` ("not
+    measured" when three windows come back without a device record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in prof.events() if is_card_event(ev))
+        if spans:
+            return busy_us(spans) / 1e3 / calls
+    return "not measured"
+
+
+def phase_ops_surface(torch, slic_mod):
+    """Phase 2b: B1 at large K and unchanged at K = 529, ``slic``'s two
+    backends, the connectivity dispatcher against the per-pixel path, and
+    Canny's thresholds, each on the card against the plain or CPU result."""
+    conn = importlib.import_module("camouflage_multimodal_tpu_torch.ops.connectivity")
+    canny_mod = importlib.import_module("camouflage_multimodal_tpu_torch.ops.canny")
+    from camouflage_multimodal_tpu_torch.ops.image import rgb_to_gray
+    from camouflage_multimodal_tpu_torch.pipeline import padded_nodes
+
+    # (a) B1 at large K: one chunk of the list is 1,024 centers.
+    large_k = []
+    for size, n_segments in OPS_LARGE_K:
+        imgs = synthetic_images(7 + size, 1, size)
+        pix, c0, _, step, ratio = slic_state(torch, slic_mod, imgs, 0, n_segments)
+        _, c5, prev5, _, _ = slic_state(torch, slic_mod, imgs, 5, n_segments)
+        err = check_slic_cases(torch, slic_mod, [
+            (f"large_k_{size}_seed", size, size, pix, c0, torch.zeros_like(prev5), step, ratio),
+            (f"large_k_{size}_iter5", size, size, pix, c5, prev5, step, ratio)])
+        rec = {"size": size, "n_segments": n_segments, "k": int(c0.shape[1]), "step": step,
+               "max_abs_err": err,
+               **b1_times(torch, slic_mod, pix, c5.contiguous(), prev5, step, ratio, size)}
+        large_k.append(rec)
+        emit({"phase": "ops_surface_b1_large_k", **rec})
+
+    # (b) B1 at the main path's K = 529: the unchunked kernel's bits, its time.
+    imgs = synthetic_images(7 + SIZE, BATCH, SIZE)
+    pix, c0, _, step, ratio = slic_state(torch, slic_mod, imgs, 0)
+    _, c5, prev5, _, _ = slic_state(torch, slic_mod, imgs, 5)
+    digests = {}
+    for name, c, prev in (("seed", c0, torch.zeros_like(prev5)), ("iter5", c5, prev5)):
+        got = slic_mod.slic_assign(pix, c.contiguous(), prev, ratio, step, width=SIZE)
+        digests[name] = label_digest(got)
+    k529 = {"k": int(c0.shape[1]), "digests": digests,
+            "digests_equal_unchunked": digests == B1_K529_DIGESTS,
+            **b1_times(torch, slic_mod, pix, c5.contiguous(), prev5, step, ratio, SIZE)}
+    emit({"phase": "ops_surface_b1_k529", **k529})
+    if digests != B1_K529_DIGESTS:
+        fail(f"B1 at K = 529 changed its bits: {digests} != {B1_K529_DIGESTS}")
+
+    # (c) slic on the card vs the CPU, both backends, one 352² image.
+    img = torch.from_numpy(synthetic_images(31, 1, SLIC_BACKEND_SIZE)[0]).float() / 255.0
+    for backend in ("window", "exact"):
+        kw = dict(compactness=20.0, convert_lab=False, backend=backend,
+                  enforce_connectivity=False, return_drift=True)
+        got, drift = slic_mod.slic(img.cuda(), **kw)
+        want, want_drift = slic_mod.slic(img, **kw)
+        equal = float((got.cpu() == want).float().mean())
+        emit({"phase": "ops_surface_slic", "backend": backend, "size": SLIC_BACKEND_SIZE,
+              "labels_equal": equal, "drift": float(drift), "cpu_drift": float(want_drift)})
+        if equal < 0.995 or got.shape != want.shape:
+            fail(f"slic(backend={backend!r}) on the card agrees on {equal} of the labels")
+
+    # (d) the connectivity dispatcher against the per-pixel path.
+    times = {}
+    for batch, size in CONN_SIZES:
+        images = torch.from_numpy(synthetic_images(40 + size, batch, size)).cuda().float() / 255.0
+        raw = slic_mod.slic(images, backend="exact", enforce_connectivity=False)
+        kw = dict(n_segments=500, max_labels=padded_nodes(500, size))
+        out, fallback = conn.enforce_label_connectivity_batched(raw, return_fallback=True, **kw)
+        pixel = conn.enforce_label_connectivity(raw, **kw)
+        # The runs path's telemetry against the CPU's per-pixel path, with a
+        # bucket that holds every row-run (so it is exact whatever the count).
+        flags = dict(return_count=True, return_rounds=True, return_raw_count=True)
+        runs = conn.enforce_label_connectivity_runs(raw, run_bucket=size * size, **kw, **flags)
+        cpu = conn.enforce_label_connectivity(raw.cpu(), **kw, **flags)
+        counts_equal = all(torch.equal(a.cpu(), b) for a, b in zip(runs[1:], cpu[1:]))
+        rec = {"batch": batch, "size": size, "fallback": fallback,
+               "equal_to_per_pixel": bool(torch.equal(out, pixel)),
+               "runs_equal_to_cpu": bool(torch.equal(runs[0].cpu(), cpu[0])),
+               "counts_rounds_raw_equal_to_cpu": counts_equal,
+               "rounds": [int(x) for x in runs[2]], "raw_components_max": int(runs[3].max()),
+               "row_runs_max": int(conn._row_run_starts(raw).sum(dim=(1, 2)).max()),
+               "run_bucket": size * size // 4}
+        # The dispatcher is the per-pixel path; the runs path is timed as the
+        # record of why it is not dispatched.
+        paths = {"per_pixel": lambda: conn.enforce_label_connectivity(raw, **kw)}
+        if not fallback:
+            paths["runs"] = lambda: conn.enforce_label_connectivity_runs(raw, **kw)
+        for name, fn in paths.items():
+            (rec[f"{name}_host_ms"], rec[f"{name}_event_ms"],
+             rec[f"{name}_device_busy_ms"]) = timed_path(torch, fn)
+        times[f"{batch}x{size}"] = rec
+        emit({"phase": "ops_surface_connectivity", **rec})
+        if not (rec["equal_to_per_pixel"] and rec["runs_equal_to_cpu"] and counts_equal):
+            fail(f"connectivity paths disagree at {batch} x {size}^2: {rec}")
+
+    # (e) Canny at the non-default thresholds, card vs CPU, on contrast-
+    # stretched images (edges above both thresholds).
+    gray = rgb_to_gray(torch.from_numpy(synthetic_images(50, BATCH, SIZE)).float() / 255.0)
+    gray = torch.clamp(0.5 + 4.0 * (gray - gray.mean()), 0.0, 1.0)
+    for low, high in CANNY_THRESHOLDS:
+        got = canny_mod.canny(gray.cuda(), 2.0, low, high).cpu()
+        want = canny_mod.canny(gray, 2.0, low, high)
+        differ = float((got != want).float().mean())
+        emit({"phase": "ops_surface_canny", "low": low, "high": high,
+              "pixels_differing": differ, "edge_pixels": int(want.sum())})
+        if differ > 1e-3 or not want.any():
+            fail(f"Canny ({low}, {high}) differs on {differ} of the pixels")
+    return {"large_k": large_k, "k529": k529, "connectivity": times}
 
 
 def mha_inputs(torch, fusion_model, nq, nk, seed, batch=BATCH):
@@ -919,7 +1149,7 @@ def agreeing_nodes(np, seg_a, seg_b, K):
 def phase_train_rg(torch, np, kernels, api, out_dir):
     """Drive RG training; returns (trainer, dataset, its launches)."""
     from camouflage_multimodal_tpu_torch.models import region_graph as model_mod
-    from camouflage_multimodal_tpu_torch.ops import slic as slic_mod
+    slic_mod = importlib.import_module("camouflage_multimodal_tpu_torch.ops.slic")
     from camouflage_multimodal_tpu_torch.pipeline import RegionGraphPipeline
     from camouflage_multimodal_tpu_torch.train import train_rg
 
@@ -1189,7 +1419,7 @@ def phase_workflow(torch, np, kernels, api, out_dir):
     from camouflage_multimodal_tpu_torch.eval import curves as curves_mod
     from camouflage_multimodal_tpu_torch.eval import metrics as metrics_mod
     from camouflage_multimodal_tpu_torch.extract import batch_extract_embeddings, load_image_u8
-    from camouflage_multimodal_tpu_torch.ops import slic as slic_mod
+    slic_mod = importlib.import_module("camouflage_multimodal_tpu_torch.ops.slic")
     from camouflage_multimodal_tpu_torch.pipeline import RegionGraphPipeline, build_region_graphs
     from camouflage_multimodal_tpu_torch.train import train_fusion as train_mod
 
@@ -1422,8 +1652,6 @@ CONFIG = "configs/multimodal_config.yaml"
 def phase_host_packages():
     """Versions of the host packages the figures (matplotlib), ``--config``
     (PyYAML) and decoding (PIL) need; ``None`` for a missing one."""
-    import importlib
-
     versions = {}
     for name, module in (("PIL", "PIL"), ("matplotlib", "matplotlib"), ("PyYAML", "yaml")):
         try:
@@ -2797,13 +3025,6 @@ def phase_profile(torch, what, fn, trace=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def on_card(ev):
-        """A kernel or a copy: not a host range mirrored onto the card's
-        timeline (the cmt:: stages, the optimizer's step annotation)."""
-        return (ev.device_type == DeviceType.CUDA and not ev.name.startswith("cmt::")
-                and not getattr(ev, "is_user_annotation", False)
-                and not ev.name.startswith("Optimizer."))
-
     # A short window now and then comes back without one device record;
     # it is then taken again, up to three times in all.
     for attempt in range(1, 4):
@@ -2817,7 +3038,8 @@ def phase_profile(torch, what, fn, trace=None):
         # stage's first to its last device activity, on the card's timeline.
         # Every other event on the card is a kernel or a copy.
         events = prof.events()
-        spans = sorted((ev.time_range.start, ev.time_range.end) for ev in events if on_card(ev))
+        spans = sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in events if is_card_event(ev))
         if spans:
             break
     if trace:
@@ -2835,7 +3057,7 @@ def phase_profile(torch, what, fn, trace=None):
                                                   ev.time_range.end) / 1e3
             else:
                 stage["host_ms"] = ms
-        elif on_card(ev):
+        elif is_card_event(ev):
             t, n = by_kernel.get(ev.name, (0.0, 0))
             by_kernel[ev.name] = (t + ms, n + 1)
     busy_ms = busy_us(spans) / 1e3
@@ -2890,7 +3112,7 @@ def main() -> None:
         from camouflage_multimodal_tpu_torch import cli as cli_mod
         from camouflage_multimodal_tpu_torch.core import kernels
         from camouflage_multimodal_tpu_torch.ops import attention as attention_mod
-        from camouflage_multimodal_tpu_torch.ops import slic as slic_mod
+        slic_mod = importlib.import_module("camouflage_multimodal_tpu_torch.ops.slic")
         from camouflage_multimodal_tpu_torch.train import train_fusion as train_mod
     except ImportError as e:
         fail(f"the port is not importable next to this script: {e}")
@@ -2920,6 +3142,7 @@ def main() -> None:
     packages = phase_host_packages()
     phase_build(kernels)
     b1 = phase_slic_assign(torch, slic_mod, synthetic_images(7, BATCH, SIZE))
+    ops_surface = phase_ops_surface(torch, slic_mod)
     fusion_model, _ = api.load_multimodal_model(ARTIFACTS[0], device="cuda")
     b2_cases, b2_err = phase_fused_mha(torch, kernels, attention_mod, fusion_model)
     b3_cases, b3_err = phase_fused_mha_bwd(torch, kernels, attention_mod, fusion_model)
@@ -2966,7 +3189,12 @@ def main() -> None:
          "per_rg_training": "1 launch: one SLIC assignment of 16 images of 256^2 against K=529",
          "max_abs_err": b1["max_abs_err"],
          "ms": b1_ms, "host_ms": b1_host, "plain_ms": b1_plain, "bound_ms": b1_bound[0],
-         "bound_by": b1_bound[1], "library_ms": None},
+         "bound_by": b1_bound[1], "library_ms": None,
+         "device_ms_k529": ops_surface["k529"]["device_ms"],
+         "digests_k529_equal_unchunked": ops_surface["k529"]["digests_equal_unchunked"],
+         "large_k": [{key: rec[key] for key in (
+             "size", "k", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
+             for rec in ops_surface["large_k"]]},
         {"name": "fused_mha", "route": "cuda",
          "source": "camouflage_multimodal_tpu_torch/csrc/fused_mha.cu",
          "replaces": "camouflage_multimodal_tpu/ops/pallas_attention.py:30",

@@ -9,6 +9,7 @@ machine with an NVIDIA GPU (sm_90a) and the CUDA toolkit with
 need not have; these tests import only the port.)
 """
 
+import importlib
 import os
 
 import numpy as np
@@ -17,7 +18,8 @@ import torch
 
 from camouflage_multimodal_tpu_torch.core import kernels
 from camouflage_multimodal_tpu_torch.ops import attention as A
-from camouflage_multimodal_tpu_torch.ops import slic as S
+
+S = importlib.import_module("camouflage_multimodal_tpu_torch.ops.slic")   # ops.slic is the function
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +70,52 @@ def test_slic_assign_build_batch_equals_plain(dev, iters):
     got = S.slic_assign(pix, centers, labels, ratio, step, width=256)
     torch.cuda.synchronize()
     assert torch.equal(got, S.slic_assign_plain(pix, centers, labels, ratio, step))
+
+
+@pytest.mark.parametrize("case", ["seed", "jitter", "collapsed", "duplicated"])
+@pytest.mark.parametrize("size,n_segments", [(416, 12000), (352, 8000)])
+def test_slic_assign_large_k_equals_plain(dev, size, n_segments, case):
+    """K = 10,816 and 7,744, beyond one 1,024-center chunk of B1's list: labels
+    bit-equal, with every center collapsed into one tile (each chunk's list
+    full) and with centers repeated one chunk apart (exact ties across a
+    chunk boundary go to the lower id)."""
+    pix, centers, step, ratio = S.slic_features(_images(dev, 1, size, size), n_segments)
+    assert centers.shape[1] > 7264
+    if case == "duplicated":
+        centers = centers.clone()
+        centers[:, 1024:2048] = centers[:, :1024]
+    else:
+        centers = _center_case(case, centers, step, size, size, dev)
+    prev = torch.zeros(pix.shape[:2], dtype=torch.int32, device=dev)
+    got = S.slic_assign(pix, centers.contiguous(), prev, ratio, step, width=size)
+    torch.cuda.synchronize()
+    assert torch.equal(got, S.slic_assign_plain(pix, centers, prev, ratio, step))
+
+
+@pytest.mark.parametrize("backend", ["window", "exact"])
+def test_slic_backends_on_card_match_cpu(dev, backend):
+    """Both backends on the card vs the CPU: raw labels ≥ 99.5 % equal (Lab,
+    blur and the center sums round differently on the card)."""
+    imgs = _images(dev, 2, 160, 2)
+    kw = dict(n_segments=120, backend=backend, enforce_connectivity=False)
+    got = S.slic(imgs, **kw).cpu()
+    assert (got == S.slic(imgs.cpu(), **kw)).float().mean() >= 0.995
+
+
+def test_connectivity_dispatcher_on_card(dev):
+    """The dispatcher, the runs path and the per-pixel path on the card:
+    labels equal to the bit to each other and to the CPU's, telemetry too."""
+    C = importlib.import_module("camouflage_multimodal_tpu_torch.ops.connectivity")
+    raw = S.slic(_images(dev, 4, 128, 4), n_segments=120, backend="exact",
+                 enforce_connectivity=False)
+    out, fallback = C.enforce_label_connectivity_batched(raw, 120, max_labels=256,
+                                                         return_fallback=True)
+    assert not fallback
+    flags = dict(return_count=True, return_rounds=True, return_raw_count=True)
+    runs = C.enforce_label_connectivity_runs(raw, 120, max_labels=256, **flags)
+    cpu = C.enforce_label_connectivity(raw.cpu(), 120, max_labels=256, **flags)
+    assert torch.equal(out, runs[0]) and torch.equal(out.cpu(), cpu[0])
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(runs[1:], cpu[1:]))
 
 
 def _center_case(case, centers, step, height, width, dev):
@@ -189,8 +237,9 @@ def test_slic_on_card_matches_cpu(dev):
     (the card's Lab conversion and blur round differently; the center sums
     run in the CPU's order)."""
     imgs = _images(dev, 2, 128, 1)
-    got = S.slic(imgs, n_segments=100)[0].cpu().numpy()
-    want = S.slic(imgs.cpu(), n_segments=100)[0].numpy()
+    kw = dict(n_segments=100, backend="exact", enforce_connectivity=False, return_drift=True)
+    got = S.slic(imgs, **kw)[0].cpu().numpy()
+    want = S.slic(imgs.cpu(), **kw)[0].numpy()
     assert (got == want).mean() >= 0.995
     assert np.isin(got, np.arange(got.max() + 1)).all()
 

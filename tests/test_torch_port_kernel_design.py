@@ -23,13 +23,16 @@ card, ``tests/test_torch_port_cuda.py``):
   (``ops.attention.bwd_tile_plan``), whatever order the tiles run in.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from camouflage_multimodal_tpu_torch import api
 from camouflage_multimodal_tpu_torch.ops import attention as A
-from camouflage_multimodal_tpu_torch.ops import slic as S
+
+S = importlib.import_module("camouflage_multimodal_tpu_torch.ops.slic")   # ops.slic is the function
 
 FUSION_CKPT = "artifacts/checkpoints_balanced/multimodal_best_fixed.ckpt"
 
