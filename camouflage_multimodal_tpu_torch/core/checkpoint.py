@@ -7,8 +7,15 @@ nodes are ``{"t": "d"|"l"|"tu", "v": ...}`` containers, ``{"t": "s", "v":
 scalar}`` scalars and ``{"t": "a", "v": "aN"}`` array references
 (``{"t": "sd"}`` wraps a flattened structured node; the writer here takes
 plain dict / list / tuple / scalar / array nodes and never emits it).
-Pre-npz pickle checkpoints are refused: unpickling them needs the JAX
-package's classes. Either package reads what the other writes.
+Either package reads what the other writes.
+
+Pre-npz pickle checkpoints are read as the JAX package reads them (told
+apart by the first two bytes, :func:`checkpoint_format`), through an
+unpickler that builds containers, Python and numpy scalars and numpy arrays
+and nothing else: a file that names any other global (a jax, flax or optax
+class, a callable of the file's choosing) is refused with ``ValueError``
+before that global is looked up. The JAX package unpickles such files in
+full; this reader is stricter on purpose.
 
 :func:`save_resume_checkpoint` / :func:`load_resume_checkpoint` snapshot a
 trainer of the port mid-run in the same format.
@@ -18,11 +25,40 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import Any, Dict
 
 import numpy as np
 
 _META_KEY = "__meta__"
+# The globals a pickle of containers, scalars and numpy arrays refers to
+# under any protocol (numpy 1.x and 2.x spellings): none of them runs code
+# of the file's choosing.
+_PICKLE_GLOBALS = frozenset(
+    [("builtins", n) for n in ("dict", "list", "tuple", "set", "frozenset", "int",
+                               "float", "complex", "bool", "str", "bytes", "bytearray")]
+    + [("_codecs", "encode"), ("numpy", "ndarray"), ("numpy", "dtype")]
+    + [(f"numpy.{core}.{mod}", name) for core in ("core", "_core")
+       for mod, name in (("multiarray", "_reconstruct"), ("multiarray", "scalar"),
+                         ("numeric", "_frombuffer"))])
+
+
+class _LegacyUnpickler(pickle.Unpickler):
+    """Unpickler of pre-npz checkpoints that looks up only
+    :data:`_PICKLE_GLOBALS`."""
+
+    def __init__(self, f, path: str) -> None:
+        super().__init__(f)
+        self.path = path
+
+    def find_class(self, module: str, name: str) -> Any:
+        # Protocols 0-2 spell Python 2's ``__builtin__``.
+        if ("builtins" if module == "__builtin__" else module, name) not in _PICKLE_GLOBALS:
+            raise ValueError(
+                f"{self.path}: legacy pickle checkpoint refers to {module}.{name}, which "
+                "this reader does not build; re-save it in the npz .ckpt format "
+                "(scripts/migrate_checkpoints.py) before loading it here")
+        return super().find_class(module, name)
 
 
 def _decode(node: Any, arrays: Dict[str, np.ndarray]) -> Any:
@@ -77,14 +113,17 @@ def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
     os.replace(tmp, path)
 
 
+def checkpoint_format(path: str) -> str:
+    """``"npz"`` for the durable format, ``"pickle"`` for legacy files."""
+    with open(path, "rb") as f:
+        return "npz" if f.read(2) == b"PK" else "pickle"
+
+
 def load_checkpoint(path: str) -> Any:
     """Nested dict/list/tuple structure with numpy array leaves."""
-    with open(path, "rb") as f:
-        magic = f.read(2)
-    if magic != b"PK":
-        raise ValueError(
-            f"{path}: legacy pickle checkpoint; re-save it in the npz .ckpt "
-            "format (scripts/migrate_checkpoints.py) before loading it here")
+    if checkpoint_format(path) == "pickle":
+        with open(path, "rb") as f:
+            return _LegacyUnpickler(f, path).load()
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z[_META_KEY].tobytes()).decode("utf-8"))
         arrays = {k: z[k] for k in z.files if k != _META_KEY}

@@ -38,6 +38,7 @@ JAX package: a model that trains with dropout > 0 does not use the kernels.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -128,6 +129,22 @@ def multihead_attention(params: Params, query: torch.Tensor,
     if params["bo"] is not None:
         out = out + params["bo"]
     return out, _head_mean(probs, total_heads)
+
+
+def init_mha_params(generator: torch.Generator, embed_dim: int,
+                    device: Optional[torch.device | str] = None) -> Params:
+    """``wq, wk, wv, wo`` (E, E) Xavier-uniform, U(-a, a) with a =
+    sqrt(6 / (2E)), drawn from ``generator`` in that order, and zero ``bq,
+    bk, bv, bo`` (E,), float32: the JAX ``init_mha_params`` (torch
+    ``MultiheadAttention``'s in-projection law; the draws are torch's). The
+    draws are made on the generator's device and moved to ``device``."""
+    bound = math.sqrt(6.0 / (2 * embed_dim))
+    params = {name: ((torch.rand((embed_dim, embed_dim), generator=generator,
+                                 device=generator.device) * 2 - 1) * bound).to(device)
+              for name in ("wq", "wk", "wv", "wo")}
+    for name in ("bq", "bk", "bv", "bo"):
+        params[name] = torch.zeros(embed_dim, device=device or generator.device)
+    return params
 
 
 def multihead_attention_backward(params: Params, query: torch.Tensor,

@@ -16,7 +16,9 @@ behind ``make_server``, ``cli serve`` and six more subcommands), RG
 training, fusion training and directory evaluation data-parallel over
 ``torch.distributed`` ranks, and fusion training tensor-parallel over the
 mesh's ``model`` axis with the multimodal pipeline's image rows split over
-it (spatial sharding).
+it (spatial sharding), and the JAX package's top-level API on the port
+(``detect_camouflage`` and ``MultimodalPredictor`` through the package's
+lazy names) with the optional Neo4j export.
 
 Phases, each failing the run (nonzero exit, no result line) when it fails:
 
@@ -80,6 +82,19 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    must have launched 10 times and B2 twice per batch. Outputs must be
    finite and the first image must agree with the CPU port (segment maps
    ≥ 99 % equal, heatmap MAE ≤ 1e-2);
+5b. the top-level API (``surface``): a seeded 256² PNG through
+   ``camouflage_multimodal_tpu_torch.detect_camouflage`` (the package's
+   lazy name; ``rg_model.ckpt``, 500 segments, no figures): B1 exactly 10
+   launches, B2 none; ``camouflage_multimodal_tpu_torch.MultimodalPredictor``
+   on the three committed artifacts, ``predict_batch`` on the same image at
+   batch 1: B1 10, B2 2; the two heatmaps and mean scores within 1e-5. Then
+   ``kg.neo4j_compat.export_to_neo4j`` of phase 8's synthetic annotations
+   through a ``neo4j`` stub put in ``sys.modules`` for the call alone,
+   which counts what it is sent: 8 constraints, one write transaction, one
+   statement per node and per organism link, the write count equal to the
+   store's nodes, the driver closed; without a driver the export's
+   ``RuntimeError``. Launch counts are zeroed just before each call and
+   read just after;
 6. the training path: ``FusionTrainer.fit`` with device-resident epochs on
    64 seeded synthetic records shaped like real ones (380–560 nodes and one
    of 600 that the 576-node bucket truncates, 128-d, the committed KG
@@ -1996,6 +2011,143 @@ def phase_cli(torch, np, cli, packages, out_dir):
 
 
 # ---------------------------------------------------------------------------
+# The JAX package's top-level API on the port
+# ---------------------------------------------------------------------------
+
+SURFACE_SEED = 41
+SURFACE_SEGMENTS = 500
+SURFACE_BAR = 1e-5         # the serving phase's bar against predict_batch
+NEO4J_CONSTRAINTS = 8
+
+
+def neo4j_stub():
+    """(module, counts): a ``neo4j`` module whose driver counts what an
+    export sends it and writes nothing anywhere."""
+    import types
+
+    counts = {"constraints": 0, "statements": 0, "transactions": 0, "closed": 0}
+
+    class Tx:
+        def run(self, query, **params):
+            counts["statements"] += 1
+
+    class Session:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def run(self, query):
+            counts["constraints"] += 1
+
+        def execute_write(self, fn):
+            counts["transactions"] += 1
+            return fn(Tx())
+
+    class Driver:
+        def session(self, database):
+            return Session()
+
+        def close(self):
+            counts["closed"] += 1
+
+    mod = types.ModuleType("neo4j")
+    mod.GraphDatabase = types.SimpleNamespace(driver=lambda uri, auth: Driver())
+    return mod, counts
+
+
+def phase_surface(torch, np, kernels):
+    """The top-level names of the package, resolved lazily as the JAX
+    package's are: ``detect_camouflage`` on a seeded 256² PNG (B1 10
+    launches) and ``MultimodalPredictor.predict_batch`` on the same image at
+    batch 1 (B1 10, B2 2), heatmap and mean score within 1e-5 of each
+    other; then ``kg.neo4j_compat.export_to_neo4j`` of the KG phase's
+    annotations through a counting ``neo4j`` stub, and its ``RuntimeError``
+    without a driver."""
+    import camouflage_multimodal_tpu_torch as cm
+    from camouflage_multimodal_tpu_torch.data import load_image_rgb
+    from camouflage_multimodal_tpu_torch.kg import CamouflageKnowledgeStore
+    from camouflage_multimodal_tpu_torch.kg.neo4j_compat import export_to_neo4j
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "surface.png")
+        with open(png, "wb") as f:
+            f.write(png_bytes(synthetic_images(SURFACE_SEED, 1, SIZE)[0]))
+        (heatmap, mean_score, band, _), detect_s, detect_launches = counted(
+            torch, kernels, lambda: cm.detect_camouflage(
+                png, ARTIFACTS[1], tmp, n_segments=SURFACE_SEGMENTS, save_figures=False,
+                device="cuda"))
+        t0 = time.perf_counter()
+        predictor = cm.MultimodalPredictor(*ARTIFACTS, n_segments=SURFACE_SEGMENTS,
+                                           device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        image = load_image_rgb(png, SIZE)
+        out, predict_s, predict_launches = counted(
+            torch, kernels, lambda: predictor.predict_batch(image[None]))
+    diffs = {"heatmap": float(np.abs(heatmap - out["heatmap"][0]).max()),
+             "mean_score": abs(mean_score - float(out["heatmap"][0].mean()))}
+
+    with np.load(ARTIFACTS[2]) as z:
+        categories = list(z.files)
+    store = CamouflageKnowledgeStore()
+    for name, obj in synthetic_annotations(np, categories, KG_PER_CATEGORY):
+        store.ingest_annotation(obj, name)
+    nodes = sum(len(getattr(store, t)) for t in (
+        "organisms", "environments", "assessments", "similarities", "observations"))
+    links = sum(len(o["colors"]) + len(o["textures"]) + len(o["patterns"])
+                for o in store.organisms.values())
+    stub, counts = neo4j_stub()
+    sys.modules["neo4j"] = stub
+    try:
+        t0 = time.perf_counter()
+        writes = export_to_neo4j(store, "bolt://localhost:7687", "neo4j", "unused")
+        export_s = time.perf_counter() - t0
+    finally:
+        del sys.modules["neo4j"]
+    # ``None`` in ``sys.modules`` makes ``import neo4j`` fail whether or not
+    # a driver is installed, so the export never reaches for a server.
+    sys.modules["neo4j"] = None
+    try:
+        export_to_neo4j(store, "bolt://localhost:7687", "neo4j", "unused")
+        missing_driver = None
+    except RuntimeError as err:
+        missing_driver = str(err)
+    finally:
+        del sys.modules["neo4j"]
+
+    want_detect = {"slic_assign": SLIC_ITERS, "fused_mha": 0, "fused_mha_bwd": 0}
+    want_predict = {"slic_assign": SLIC_ITERS, "fused_mha": 2, "fused_mha_bwd": 0}
+    emit({"phase": "surface", "size": SIZE, "segments": SURFACE_SEGMENTS, "band": band,
+          "detect_camouflage": {"launches": detect_launches, "expected_launches": want_detect,
+                                "host_ms": 1e3 * detect_s},
+          "predictor_build_host_ms": 1e3 * build_s,
+          "predict_batch": {"batch": 1, "launches": predict_launches,
+                            "expected_launches": want_predict, "host_ms": 1e3 * predict_s},
+          "max_abs_diff": diffs, "bar": SURFACE_BAR,
+          "neo4j_export": {"writes": writes, "store_nodes": nodes, **counts,
+                           "host_ms": 1e3 * export_s},
+          "missing_driver_error": missing_driver})
+    if detect_launches != want_detect:
+        fail(f"detect_camouflage launched {detect_launches}, expected {want_detect}")
+    if predict_launches != want_predict:
+        fail(f"predict_batch at batch 1 launched {predict_launches}, expected {want_predict}")
+    if heatmap.shape != (SIZE, SIZE) or not np.isfinite(heatmap).all() \
+            or not np.isfinite(out["heatmap"]).all():
+        fail("detect_camouflage or predict_batch gave a non-finite or misshapen heatmap")
+    if max(diffs.values()) > SURFACE_BAR:
+        fail(f"detect_camouflage differs from predict_batch: {diffs}")
+    if writes != nodes or counts != {"constraints": NEO4J_CONSTRAINTS,
+                                     "statements": nodes + links, "transactions": 1,
+                                     "closed": 1}:
+        fail(f"export_to_neo4j wrote {writes} of {nodes} nodes with {counts}")
+    if missing_driver is None or "neo4j driver not installed" not in missing_driver:
+        fail(f"export_to_neo4j without a driver did not raise its RuntimeError: {missing_driver}")
+    return {"detect_camouflage": detect_launches, "predict_batch": predict_launches}
+
+
+# ---------------------------------------------------------------------------
 # Data parallelism
 # ---------------------------------------------------------------------------
 
@@ -3147,6 +3299,7 @@ def main() -> None:
     b2_cases, b2_err = phase_fused_mha(torch, kernels, attention_mod, fusion_model)
     b3_cases, b3_err = phase_fused_mha_bwd(torch, kernels, attention_mod, fusion_model)
     predictor, batches, launches = phase_slice(torch, np, kernels, api, args.batches)
+    surface_launches = phase_surface(torch, np, kernels)
     with tempfile.TemporaryDirectory() as out_dir:
         trainer, train_ds, train_launches = phase_train_slice(
             torch, np, kernels, api, train_mod, out_dir)
@@ -3182,6 +3335,7 @@ def main() -> None:
          "launches_rg_training": rg_launches["slic_assign"],
          "launches_workflow": workflow_launches["slic_assign"],
          "launches_serving": serve_launches["slic_assign"],
+         "launches_surface": {k: v["slic_assign"] for k, v in surface_launches.items()},
          "launches_data_parallel_world1": dp_total(dp_launches["world1"], "slic_assign"),
          "launches_data_parallel_per_rank": [dp_total(r, "slic_assign")
                                              for r in dp_launches["ranks"]],
@@ -3204,6 +3358,7 @@ def main() -> None:
          "launches_training": train_launches["fused_mha"],
          "launches_workflow": workflow_launches["fused_mha"],
          "launches_serving": serve_launches["fused_mha"],
+         "launches_surface": {k: v["fused_mha"] for k, v in surface_launches.items()},
          "launches_data_parallel_world1": dp_total(dp_launches["world1"], "fused_mha"),
          "launches_data_parallel_per_rank": [dp_total(r, "fused_mha")
                                              for r in dp_launches["ranks"]],
@@ -3223,6 +3378,7 @@ def main() -> None:
          "launches": train_launches["fused_mha_bwd"], "max_abs_err": b3_err,
          "launches_workflow": workflow_launches["fused_mha_bwd"],
          "launches_serving": serve_launches["fused_mha_bwd"],
+         "launches_surface": {k: v["fused_mha_bwd"] for k, v in surface_launches.items()},
          "launches_data_parallel_world1": dp_total(dp_launches["world1"], "fused_mha_bwd"),
          "launches_data_parallel_per_rank": [dp_total(r, "fused_mha_bwd")
                                              for r in dp_launches["ranks"]],

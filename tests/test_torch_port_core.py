@@ -56,11 +56,20 @@ def test_checkpoint_reader_matches_jax_loader(path):
     _assert_same_tree(load_checkpoint(path), j_load(path))
 
 
+class _RunsCode:
+    """Unpickles into a call of ``os.system``: what a pickle may name."""
+
+    def __reduce__(self):
+        return os.system, ("true",)
+
+
 def test_checkpoint_reader_refuses_legacy_pickle(tmp_path):
+    """A legacy pickle that names a global other than containers, scalars
+    and numpy arrays is refused before that global is looked up."""
     p = tmp_path / "old.ckpt"
     with open(p, "wb") as f:
-        pickle.dump({"params": {}}, f)
-    with pytest.raises(ValueError, match="legacy pickle"):
+        pickle.dump({"params": {}, "hook": _RunsCode()}, f)
+    with pytest.raises(ValueError, match="legacy pickle.*migrate_checkpoints"):
         load_checkpoint(str(p))
 
 
@@ -137,6 +146,7 @@ bad = sorted(m for m in sys.modules
 assert len(names) >= 50, names
 for needed in ("train.train_fusion", "train.losses", "train.schedules", "train.state",
                "train.train_rg", "train.train_kg", "models.knowledge_graph", "kg.store",
+               "kg.neo4j_compat",
                "kg.featurize", "kg.normalize", "core.torch_compat", "core.artifacts",
                "core.stages", "data.cod10k", "data.labels", "data.matcher", "extract",
                "eval.metrics", "eval.curves", "utils.metrics", "parallel",
