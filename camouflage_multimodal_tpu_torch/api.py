@@ -29,10 +29,10 @@ from camouflage_multimodal_tpu_torch.core.checkpoint import load_checkpoint, sca
 from camouflage_multimodal_tpu_torch.core.device import resolve_device
 from camouflage_multimodal_tpu_torch.core.torch_compat import load_torch_checkpoint
 from camouflage_multimodal_tpu_torch.data import (
-    build_ordered_kg_tensor, load_image_rgb, load_kg_embeddings, load_mask)
+    build_ordered_kg_tensor, load_image_rgb, load_image_u8, load_kg_embeddings, load_mask)
 from camouflage_multimodal_tpu_torch.eval.curves import batch_curve_metrics
 from camouflage_multimodal_tpu_torch.eval.metrics import batch_evaluate, evaluate_segmentation
-from camouflage_multimodal_tpu_torch.extract import load_image_u8, pipeline_device
+from camouflage_multimodal_tpu_torch.extract import pipeline_device
 from camouflage_multimodal_tpu_torch.models.fusion import (
     MultimodalCamouflageDetector, build_multimodal_model)
 from camouflage_multimodal_tpu_torch.models.knowledge_graph import KnowledgeGraphGNN

@@ -5,7 +5,9 @@ reference's hand-rolled wall-clock timing of
 ``extract_rg_embeddings.py:328-336``). :func:`trace` records a
 ``torch.profiler`` trace — host activity always, the card's kernels too
 when CUDA is in use — and writes it as a Chrome trace into ``logdir``;
-:func:`annotate` names a region of that trace.
+:func:`annotate` names a region of that trace. :func:`device_busy_ms` is
+the one definition of "device busy" that the port's measurement scripts
+read: the union of the card's kernel and copy spans under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import json
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple, Union
 
 import torch
 
@@ -77,3 +79,51 @@ def annotate(name: str) -> Iterator[None]:
     """Named region in the trace (``torch.profiler.record_function``)."""
     with torch.profiler.record_function(name):
         yield
+
+
+def is_card_event(ev) -> bool:
+    """A kernel or a copy of a ``torch.profiler`` trace: not a host range
+    mirrored onto the card's timeline (the ``cmt::`` stages of
+    ``pipeline.py``, user annotations, the optimizer's step annotation)."""
+    from torch.autograd import DeviceType
+
+    return (ev.device_type == DeviceType.CUDA and not ev.name.startswith("cmt::")
+            and not getattr(ev, "is_user_annotation", False)
+            and not ev.name.startswith("Optimizer."))
+
+
+def busy_us(spans: Iterable[Tuple[float, float]], lo: float = float("-inf"),
+            hi: float = float("inf")) -> float:
+    """Length of the union of sorted (start, end) intervals, clipped to
+    [lo, hi]: overlapping device activity counts once."""
+    total, cur_start, cur_end = 0.0, None, None
+    for start, end in spans:
+        start, end = max(start, lo), min(end, hi)
+        if end <= start:
+            continue
+        if cur_end is None or start > cur_end:
+            total += 0.0 if cur_end is None else cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    return total + (0.0 if cur_end is None else cur_end - cur_start)
+
+
+def device_busy_ms(fn: Callable, calls: int) -> Union[float, str]:
+    """Device-busy ms a call of ``fn()`` on the card (the union of its
+    kernels' and copies' spans) over ``calls`` calls under
+    ``torch.profiler`` ("not measured" when three windows come back without
+    a device record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in prof.events() if is_card_event(ev))
+        if spans:
+            return busy_us(spans) / 1e3 / calls
+    return "not measured"

@@ -3,8 +3,9 @@
 The port's own copy of ``camouflage_multimodal_tpu/data/cod10k.py``
 (``parse_cod10k_name``, ``load_image_rgb``, ``load_mask``, ``CODDataset``
 with its PIL decode; the JAX package's native loader is bit-identical to
-PIL by its own docstring and is not ported). PIL is imported where it is
-used.
+PIL by its own docstring and is not ported: ``load_image_u8`` gives its
+uint8 output, with its ``draft`` decode through ``Image.draft``). PIL is
+imported where it is used.
 """
 
 from __future__ import annotations
@@ -27,12 +28,26 @@ def parse_cod10k_name(filename: str) -> Dict[str, Optional[str]]:
             for i, key in enumerate(keys)}
 
 
-def load_image_rgb(path: str, size: int = 256) -> np.ndarray:
-    """Decode + resize an RGB image → (size, size, 3) float32 in [0, 1]."""
+def load_image_u8(path: str, size: int = 256, draft: bool = False) -> np.ndarray:
+    """Decode + resize an RGB image → (size, size, 3) uint8 (PIL's bytes).
+
+    ``draft=True`` lets libjpeg decode a JPEG at a reduced DCT scale
+    (``Image.draft``: 1/2, 1/4 or 1/8, the smallest that still covers
+    ``size`` on both axes) before the resize, as the JAX package's native
+    loader does with ``draft=True`` (which also takes the M/8 scales between
+    them); other formats decode in full. Draft pixels differ slightly from
+    the full decode: for throughput, not parity."""
     from PIL import Image
 
-    img = Image.open(path).convert("RGB").resize((size, size))
-    return np.asarray(img, dtype=np.float32) / 255.0
+    img = Image.open(path)
+    if draft:
+        img.draft("RGB", (size, size))
+    return np.array(img.convert("RGB").resize((size, size)))
+
+
+def load_image_rgb(path: str, size: int = 256) -> np.ndarray:
+    """Decode + resize an RGB image → (size, size, 3) float32 in [0, 1]."""
+    return load_image_u8(path, size).astype(np.float32) / 255.0
 
 
 def load_mask(path: str, size: int = 256) -> np.ndarray:

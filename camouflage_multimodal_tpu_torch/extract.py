@@ -25,19 +25,13 @@ import torch
 
 from camouflage_multimodal_tpu_torch.core import stages
 from camouflage_multimodal_tpu_torch.core.artifacts import save_rg_embeddings
-from camouflage_multimodal_tpu_torch.data.cod10k import IMAGE_EXTS, load_image_rgb
+from camouflage_multimodal_tpu_torch.data.cod10k import IMAGE_EXTS, load_image_u8
 from camouflage_multimodal_tpu_torch.pipeline import RegionGraphPipeline
 
 
 def pipeline_device(pipeline: RegionGraphPipeline) -> torch.device:
     """The device the pipeline's model lives on."""
     return next(pipeline.model.parameters()).device
-
-
-def load_image_u8(path: str, size: int) -> np.ndarray:
-    """(size, size, 3) uint8 through PIL, rounded as the JAX package rounds
-    its float decode before upload."""
-    return (load_image_rgb(path, size) * 255.0).round().astype(np.uint8)
 
 
 def extract_embeddings_from_image(pipeline: RegionGraphPipeline, image_path: str):

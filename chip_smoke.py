@@ -18,7 +18,9 @@ training, fusion training and directory evaluation data-parallel over
 mesh's ``model`` axis with the multimodal pipeline's image rows split over
 it (spatial sharding), and the JAX package's top-level API on the port
 (``detect_camouflage`` and ``MultimodalPredictor`` through the package's
-lazy names) with the optional Neo4j export.
+lazy names) with the optional Neo4j export, and the port's bench, bench
+sweep, stage profile and host ceiling at the JAX bench's four
+configurations.
 
 Phases, each failing the run (nonzero exit, no result line) when it fails:
 
@@ -60,9 +62,11 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    batch 8 as directory testing calls it and at batches 1 and 2 (the
    serving buckets below 4), at the training shapes (576; at batch 4, and
    at batches 2 and 1, the per-rank blocks of a batch of 4 over two and
-   four ranks) and on a ragged case (37 queries × 75 keys, one batch row
-   with every key masked): out within rtol/atol 1e-4,
-   probabilities within rtol 1e-3 / atol 2e-3, a repeat bit-equal, and
+   four ranks), at the bench's 512-node bucket (352² and 416², 500
+   segments) in both directions at batches 16 and 32, and on a ragged case
+   (37 queries × 75 keys, one batch row with every key masked): out within
+   rtol/atol 1e-4, probabilities within rtol 1e-3 / atol 2e-3, a repeat
+   bit-equal, and
    what it keeps for B3 (projected q, k, v, the context, the split pass's
    softmax max and sum) against plain products;
 4. kernel B3 ``fused_mha_bwd``, the gradient of B2, against its plain
@@ -232,6 +236,21 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    one process's fit, B1 10 and B2 2 per pipeline batch. Per-rank seconds
    are printed (two ranks on one card show correctness, not speed). A rank
    that fails or takes more than 420 s fails the run;
+9f. the port's bench (``python -m camouflage_multimodal_tpu_torch.bench``)
+   at the JAX bench sweep's four rows (256² / 16, 352² / 16, 352² / 32,
+   416² / 16) through the port's sweep (``scripts/bench_sweep.py``, a
+   process a row) with ``BENCH_ITERS=10`` and ``BENCH_E2E_PASSES=2``, on 64
+   seeded 1024 × 768 JPEGs written for it: each row's JSON line printed
+   with every key of the JAX bench's line (``BENCH_r05.json``), backend
+   ``cuda``, and exactly 10 B1 and 2 B2 launches per pipeline forward of
+   the row's run (B3 none). Then one 352² batch of 16 on the bench's models
+   (launch counts zeroed just before, read just after: B1 10, B2 2), its
+   ``torch.profiler`` breakdown (device busy and idle share, the stages'
+   host and device ms), its first 4 images against the CPU (segment maps
+   ≥ 99 % equal, heatmap MAE ≤ 1e-2, the fusion outputs — mask, instance
+   and edge logits, score, mask probability — within 1e-3 as in serving);
+   then the stage profile (``scripts/profile_stages.py``) and the host
+   ceiling (``scripts/host_ceiling.py``) at 352² / 16, their lines printed;
 10. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel
    (B1 at each pixel-tile shape), the host time to enqueue one call, its
    plain version, ``torch.nn.functional.multi_head_attention_forward``
@@ -294,9 +313,10 @@ TRAIN_EPOCHS = 2
 GRAD_NAMES = ("d_q", "d_k", "d_v", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
 # (name, batch, queries, keys) of B2's checks: both directions at the
 # inference bucket (batch 4, batch 8 as directory testing calls it, and
-# batches 1 and 2, the serving buckets below 4) and at the training bucket
+# batches 1 and 2, the serving buckets below 4), at the training bucket
 # (batch 4, and batches 2 and 1, a rank's block of it over two and four
-# ranks), and a ragged case.
+# ranks) and at the bench's 512-node bucket (352² and 416², 500 segments)
+# at its batches 16 and 32, and a ragged case.
 B2_SHAPES = (("rg2kg", BATCH, 640, 13), ("kg2rg", BATCH, 13, 640),
              ("rg2kg_b8", 8, 640, 13), ("kg2rg_b8", 8, 13, 640),
              ("rg2kg_b1", 1, 640, 13), ("kg2rg_b1", 1, 13, 640),
@@ -304,6 +324,8 @@ B2_SHAPES = (("rg2kg", BATCH, 640, 13), ("kg2rg", BATCH, 13, 640),
              ("rg2kg_576", BATCH, TRAIN_NODES, 13), ("kg2rg_576", BATCH, 13, TRAIN_NODES),
              ("rg2kg_576_b2", 2, TRAIN_NODES, 13), ("kg2rg_576_b2", 2, 13, TRAIN_NODES),
              ("rg2kg_576_b1", 1, TRAIN_NODES, 13), ("kg2rg_576_b1", 1, 13, TRAIN_NODES),
+             ("rg2kg_512_b16", 16, 512, 13), ("kg2rg_512_b16", 16, 13, 512),
+             ("rg2kg_512_b32", 32, 512, 13), ("kg2rg_512_b32", 32, 13, 512),
              ("ragged_37x75", BATCH, 37, 75))
 # (name, batch, queries, keys) of B3's checks: both directions at the
 # training bucket (batch 4, and a rank's block of it over two and four
@@ -578,6 +600,8 @@ def timed_path(torch, fn, reps: int = CONN_REPS):
     events are recorded around host-synchronising code, so their interval
     is wall time between enqueues, close to the host ms whatever the card
     does; the busy time (``torch.profiler``) is the card's own."""
+    from camouflage_multimodal_tpu_torch.core.profiling import device_busy_ms
+
     host, dev = [], []
     out = fn()
     torch.cuda.synchronize()
@@ -593,37 +617,7 @@ def timed_path(torch, fn, reps: int = CONN_REPS):
         host.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         dev.append(start.elapsed_time(end))
-    return sorted(host)[reps // 2], sorted(dev)[reps // 2], device_busy_ms(torch, fn, reps)
-
-
-def is_card_event(ev) -> bool:
-    """A kernel or a copy of a ``torch.profiler`` trace: not a host range
-    mirrored onto the card's timeline (the cmt:: stages, the optimizer's
-    step annotation)."""
-    from torch.autograd import DeviceType
-
-    return (ev.device_type == DeviceType.CUDA and not ev.name.startswith("cmt::")
-            and not getattr(ev, "is_user_annotation", False)
-            and not ev.name.startswith("Optimizer."))
-
-
-def device_busy_ms(torch, fn, calls: int):
-    """Device busy ms a call of ``fn()`` (the union of its kernels' and
-    copies' spans) over ``calls`` calls under ``torch.profiler`` ("not
-    measured" when three windows come back without a device record)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        spans = sorted((ev.time_range.start, ev.time_range.end)
-                       for ev in prof.events() if is_card_event(ev))
-        if spans:
-            return busy_us(spans) / 1e3 / calls
-    return "not measured"
+    return sorted(host)[reps // 2], sorted(dev)[reps // 2], device_busy_ms(fn, reps)
 
 
 def phase_ops_surface(torch, slic_mod):
@@ -2879,6 +2873,110 @@ def phase_times_graph_training(torch, np, rg_trainer, rg_ds, kg_trainer, kg_subg
         phase_profile(torch, "one RG graph-build batch of 16", build)
 
 
+BENCH_ENV = {"BENCH_ITERS": "10", "BENCH_E2E_PASSES": "2"}
+BENCH_JPEGS = 64           # 4 batches of 16, cycled at batch 32
+BENCH_JPEG_SIZE = (1024, 768)
+BENCH_CPU_SIZE, BENCH_CPU_BATCH, BENCH_CPU_IMAGES = 352, 16, 4
+BENCH_TIMEOUT = 600        # seconds a row's process may take
+BENCH_FUSION_BAR = 1e-3    # the card's fusion outputs against the CPU's (as serving)
+
+
+def write_bench_jpegs(np, root: str, n: int = BENCH_JPEGS):
+    """``n`` seeded smooth scenes (the tests' generator) as 1024 × 768
+    JPEGs, which the bench decodes and resizes to each row's size."""
+    from PIL import Image
+
+    os.makedirs(root)
+    w, h = BENCH_JPEG_SIZE
+    for i, img in enumerate(synthetic_images(200, n, h)):
+        Image.fromarray(img).resize((w, h), Image.BICUBIC).save(
+            os.path.join(root, f"bench_{i:03d}.jpg"), quality=90)
+    return root
+
+
+def phase_bench(torch, np, kernels, out_dir):
+    """Phase 9f: the port's bench at the JAX sweep's four rows through the
+    sweep (a process each), its launches per forward, the card's 352²
+    batch against the CPU's, then the stage profile and the host ceiling
+    at 352² / 16. Returns {row: the bench's launches}."""
+    from camouflage_multimodal_tpu_torch import bench
+    from camouflage_multimodal_tpu_torch.scripts import bench_sweep, host_ceiling, profile_stages
+
+    t0 = time.perf_counter()
+    with open(os.path.join(REPO, "BENCH_r05.json")) as f:
+        keys = set(json.load(f)["parsed"])
+    image_dir = write_bench_jpegs(np, os.path.join(out_dir, "bench_images"))
+    env = dict(os.environ, **BENCH_ENV)
+    launches = {}
+    for size, batch in bench_sweep.ROWS:
+        r0 = time.perf_counter()
+        line = bench_sweep.bench_line(size, batch, device="cuda", image_dir=image_dir,
+                                      env=env, timeout=BENCH_TIMEOUT)
+        row = bench_sweep.row_of(size, batch, line)
+        n = line["forwards"]
+        want = {"slic_assign": SLIC_ITERS * n, "fused_mha": 2 * n, "fused_mha_bwd": 0}
+        emit({"phase": "bench_row", **row, "seconds": time.perf_counter() - r0,
+              "line": line, "expected_launches": want})
+        missing = keys - set(line)
+        if missing:
+            fail(f"bench at {size}/{batch} lacks {sorted(missing)}")
+        if line["backend"] != "cuda" or line["kernel_launches"] != want:
+            fail(f"bench at {size}/{batch}: backend {line['backend']}, launches "
+                 f"{line['kernel_launches']}, expected {want}")
+        if not all(line[k] > 0 and np.isfinite(line[k]) for k in (
+                "value", "device_only_imgs_per_sec", "p50_per_image_ms", "p50_batch1_ms",
+                "e2e_median_imgs_per_sec", "draft_decode_imgs_per_sec")):
+            fail(f"bench at {size}/{batch}: a rate is not a positive number")
+        launches[f"{size}/{batch}"] = line["kernel_launches"]
+
+    # One 352² batch of 16 on the card, its first images on the CPU.
+    cfg = bench.BenchConfig(batch=BENCH_CPU_BATCH, image_size=BENCH_CPU_SIZE)
+    images = bench.load_images(bench.image_paths(image_dir, cfg.batch), cfg.batch,
+                               cfg.image_size)
+    pipe, kg = bench.build_models(cfg, torch.device("cuda"))
+    x = torch.from_numpy(images).cuda()
+    pipe(x, kg)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    gpu = pipe(x, kg)
+    torch.cuda.synchronize()
+    got = dict(kernels.LAUNCHES)
+    want = {"slic_assign": SLIC_ITERS, "fused_mha": 2, "fused_mha_bwd": 0}
+    if got != want:
+        fail(f"a 352^2 bench batch launched {got}, expected {want}")
+    phase_profile(torch, "one bench batch of 16 at 352^2", lambda: pipe(x, kg))
+    cpu_pipe, cpu_kg = bench.build_models(cfg, torch.device("cpu"))
+    cpu = cpu_pipe(torch.from_numpy(images[:BENCH_CPU_IMAGES]), cpu_kg)
+    n = BENCH_CPU_IMAGES
+    g = {k: v[:n].cpu().numpy() for k, v in gpu.items() if isinstance(v, torch.Tensor)}
+    c = {k: v.numpy() for k, v in cpu.items() if isinstance(v, torch.Tensor)}
+    seg_eq = float((g["segments"] == c["segments"]).mean())
+    heat_mae = float(np.abs(g["heatmap"] - c["heatmap"]).mean())
+    diffs = {k: float(np.abs(g[k] - c[k]).max()) for k in (
+        "mask_logits", "instance_logits", "edge_logits", "score", "mask_prob")}
+    emit({"phase": "bench_vs_cpu", "size": cfg.image_size, "batch": cfg.batch,
+          "images_compared": n, "launches": got, "segments_equal": seg_eq,
+          "heatmap_mae": heat_mae, "max_abs_diff": diffs,
+          "nodes": [int(v) for v in g["node_mask"].sum(-1)],
+          "max_nodes": pipe.rg.max_nodes})
+    if seg_eq < 0.99 or heat_mae > 1e-2 or max(diffs.values()) > BENCH_FUSION_BAR:
+        fail(f"the bench's 352^2 batch disagrees with the CPU: segments {seg_eq}, "
+             f"heatmap MAE {heat_mae}, fusion outputs {diffs} (bar {BENCH_FUSION_BAR})")
+    if not all(np.isfinite(g[k]).all() for k in ("heatmap", "score", "mask_prob")):
+        fail("non-finite bench outputs")
+
+    stages = profile_stages.main(["--image-size", "352", "--batch", "16", "--iters", "10",
+                                  "--device", "cuda", "--image-dir", image_dir])
+    missing = set(profile_stages.STAGES) - set(stages)
+    if missing or not isinstance(stages["_device_busy_ms_per_img"], dict):
+        fail(f"stage profile: missing {sorted(missing)} or no device-busy times")
+    ceiling = host_ceiling.main(["--device", "cuda", "--image-dir", image_dir])
+    if ceiling["backend"] != "cuda" or not ceiling["compute_ms_per_img"] > 0:
+        fail("host ceiling did not measure the card")
+    emit({"phase": "bench", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def phase_slice(torch, np, kernels, api, n_batches):
     """Drive the main path; returns (predictor, batches, main-path launches)."""
     predictor = api.MultimodalPredictor(*ARTIFACTS, device="cuda")
@@ -3140,22 +3238,6 @@ def phase_times_train(torch, kernels, attention_mod, b3_cases, trainer, ds, prof
     return b3, b3_bound
 
 
-def busy_us(spans, lo=float("-inf"), hi=float("inf")) -> float:
-    """Length of the union of sorted (start, end) intervals, clipped to
-    [lo, hi]: overlapping device activity counts once."""
-    total, cur_start, cur_end = 0.0, None, None
-    for start, end in spans:
-        start, end = max(start, lo), min(end, hi)
-        if end <= start:
-            continue
-        if cur_end is None or start > cur_end:
-            total += 0.0 if cur_end is None else cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    return total + (0.0 if cur_end is None else cur_end - cur_start)
-
-
 def hand_kernel_names():
     """Names of the kernels in the port's CUDA sources (each ends in
     ``_kernel``)."""
@@ -3176,6 +3258,8 @@ def phase_profile(torch, what, fn, trace=None):
     Writes the Chrome trace to ``trace`` when given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from camouflage_multimodal_tpu_torch.core.profiling import busy_us, is_card_event
 
     # A short window now and then comes back without one device record;
     # it is then taken again, up to three times in all.
@@ -3313,6 +3397,7 @@ def main() -> None:
         dp_launches = phase_data_parallel(torch, np, kernels, api, out_dir)
         mp_kernels = phase_model_axis_kernels(torch, kernels, attention_mod, fusion_model)
         mp_launches = phase_model_axis(torch, np, kernels, api, out_dir)
+        bench_launches = phase_bench(torch, np, kernels, out_dir)
     (b1_ms, b1_host, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
         torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches, trace)
     b3, b3_bound = phase_times_train(torch, kernels, attention_mod, b3_cases, trainer,
@@ -3340,6 +3425,7 @@ def main() -> None:
          "launches_data_parallel_per_rank": [dp_total(r, "slic_assign")
                                              for r in dp_launches["ranks"]],
          "launches_model_axis_per_rank": [dp_total(r, "slic_assign") for r in mp_launches],
+         "launches_bench": {row: v["slic_assign"] for row, v in bench_launches.items()},
          "per_rg_training": "1 launch: one SLIC assignment of 16 images of 256^2 against K=529",
          "max_abs_err": b1["max_abs_err"],
          "ms": b1_ms, "host_ms": b1_host, "plain_ms": b1_plain, "bound_ms": b1_bound[0],
@@ -3363,6 +3449,7 @@ def main() -> None:
          "launches_data_parallel_per_rank": [dp_total(r, "fused_mha")
                                              for r in dp_launches["ranks"]],
          "launches_model_axis_per_rank": [dp_total(r, "fused_mha") for r in mp_launches],
+         "launches_bench": {row: v["fused_mha"] for row, v in bench_launches.items()},
          **mp_rank_shapes(mp_kernels, "fused_mha"),
          "ms_training_shapes": sum(v["fused_mha_ms"] for v in b3.values()),
          "max_abs_err": b2_err,
@@ -3383,6 +3470,7 @@ def main() -> None:
          "launches_data_parallel_per_rank": [dp_total(r, "fused_mha_bwd")
                                              for r in dp_launches["ranks"]],
          "launches_model_axis_per_rank": [dp_total(r, "fused_mha_bwd") for r in mp_launches],
+         "launches_bench": {row: v["fused_mha_bwd"] for row, v in bench_launches.items()},
          **mp_rank_shapes(mp_kernels, "fused_mha_bwd"),
          "ms": sum(v["ms"] for v in b3.values()),
          "host_ms": sum(v["host_ms"] for v in b3.values()),

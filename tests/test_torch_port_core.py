@@ -150,7 +150,8 @@ for needed in ("train.train_fusion", "train.losses", "train.schedules", "train.s
                "kg.featurize", "kg.normalize", "core.torch_compat", "core.artifacts",
                "core.stages", "data.cod10k", "data.labels", "data.matcher", "extract",
                "eval.metrics", "eval.curves", "utils.metrics", "parallel",
-               "parallel.distributed", "parallel.sharding"):
+               "parallel.distributed", "parallel.sharding", "bench", "scripts.bench_sweep",
+               "scripts.profile_stages", "scripts.host_ceiling"):
     assert pkg.__name__ + "." + needed in names, needed
 print("BAD", bad)
 """
