@@ -5,9 +5,11 @@ reference's hand-rolled wall-clock timing of
 ``extract_rg_embeddings.py:328-336``). :func:`trace` records a
 ``torch.profiler`` trace — host activity always, the card's kernels too
 when CUDA is in use — and writes it as a Chrome trace into ``logdir``;
-:func:`annotate` names a region of that trace. :func:`device_busy_ms` is
+:func:`annotate` names a region of that trace. :func:`device_profile` is
 the one definition of "device busy" that the port's measurement scripts
-read: the union of the card's kernel and copy spans under ``torch.profiler``.
+read: the union of the card's kernel and copy spans under ``torch.profiler``
+(with each kernel's device time beside it); :func:`device_busy_ms` gives the
+first part alone.
 """
 
 from __future__ import annotations
@@ -109,11 +111,12 @@ def busy_us(spans: Iterable[Tuple[float, float]], lo: float = float("-inf"),
     return total + (0.0 if cur_end is None else cur_end - cur_start)
 
 
-def device_busy_ms(fn: Callable, calls: int) -> Union[float, str]:
-    """Device-busy ms a call of ``fn()`` on the card (the union of its
-    kernels' and copies' spans) over ``calls`` calls under
-    ``torch.profiler`` ("not measured" when three windows come back without
-    a device record)."""
+def device_profile(fn: Callable, calls: int
+                   ) -> Optional[Tuple[float, Dict[str, float]]]:
+    """(device-busy ms a call of ``fn()`` on the card — the union of its
+    kernels' and copies' spans —, {kernel or copy name: device ms a call})
+    over ``calls`` calls under ``torch.profiler``; None when three windows
+    come back without a device record."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -122,8 +125,18 @@ def device_busy_ms(fn: Callable, calls: int) -> Union[float, str]:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        spans = sorted((ev.time_range.start, ev.time_range.end)
-                       for ev in prof.events() if is_card_event(ev))
-        if spans:
-            return busy_us(spans) / 1e3 / calls
-    return "not measured"
+        events = [ev for ev in prof.events() if is_card_event(ev)]
+        if events:
+            by_name: Dict[str, float] = defaultdict(float)
+            for ev in events:
+                by_name[ev.name] += ev.time_range.elapsed_us() / 1e3 / calls
+            spans = sorted((ev.time_range.start, ev.time_range.end) for ev in events)
+            return busy_us(spans) / 1e3 / calls, dict(by_name)
+    return None
+
+
+def device_busy_ms(fn: Callable, calls: int) -> Union[float, str]:
+    """Device-busy ms a call of ``fn()`` on the card (:func:`device_profile`;
+    "not measured" when no window had a device record)."""
+    prof = device_profile(fn, calls)
+    return "not measured" if prof is None else prof[0]

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional
+import subprocess
+from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -66,6 +67,36 @@ def initialize(coordinator_address: Optional[str] = None,
     kwargs = {} if timeout_s is None else {"timeout": datetime.timedelta(seconds=timeout_s)}
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=process_id, **kwargs)
+
+
+def run_ranks(commands: Sequence[Sequence[str]], envs: Sequence[Mapping[str, str]],
+              timeout: float, cwd: Optional[str] = None) -> List[str]:
+    """Start one process a rank (``commands[r]`` with ``envs[r]``), wait for
+    all of them and return each one's output (stdout and stderr). Raises
+    ``RuntimeError`` with the tails of the logs when a rank exits non-zero
+    or has not ended within ``timeout`` seconds; every rank is killed then."""
+    procs = [subprocess.Popen(list(cmd), env=dict(env), cwd=cwd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd, env in zip(commands, envs)]
+    logs: List[str] = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                logs.append(p.communicate()[0] + f"\n[killed after {timeout} s]")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise RuntimeError("a rank failed:\n" + "\n".join(
+            f"--- rank {r} (exit {p.returncode}) ---\n{log[-3000:]}"
+            for r, (p, log) in enumerate(zip(procs, logs))))
+    return logs
 
 
 def shutdown() -> None:

@@ -18,9 +18,11 @@ training, fusion training and directory evaluation data-parallel over
 mesh's ``model`` axis with the multimodal pipeline's image rows split over
 it (spatial sharding), and the JAX package's top-level API on the port
 (``detect_camouflage`` and ``MultimodalPredictor`` through the package's
-lazy names) with the optional Neo4j export, and the port's bench, bench
+lazy names) with the optional Neo4j export, the port's bench, bench
 sweep, stage profile and host ceiling at the JAX bench's four
-configurations.
+configurations, and the JAX system's last entry points on the port: the
+serve latency A/B, the connectivity profile, the checkpoint migration and
+the graft entry with its multichip dry run.
 
 Phases, each failing the run (nonzero exit, no result line) when it fails:
 
@@ -251,6 +253,26 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    and edge logits, score, mask probability — within 1e-3 as in serving);
    then the stage profile (``scripts/profile_stages.py``) and the host
    ceiling (``scripts/host_ceiling.py``) at 352² / 16, their lines printed;
+9g. the JAX system's last runnable entry points on the port, on 9f's JPEG
+   scenes (``scripts``): the serve latency A/B
+   (``scripts/serve_latency_ab.py``) in both modes at 256², batch 8, 40
+   sequential requests through ``MicroBatcher`` on the committed artifacts,
+   its p50 and p95, exactly 10 B1 and 2 B2 launches per forward, every
+   response within 1e-5 of ``predict_batch`` on its image alone; the
+   connectivity profile (``scripts/profile_connectivity.py``) at 16 × 352²
+   and 500 segments: CC ms, full ms, merge + relabel by difference, CC
+   sweeps per image, each half's device-busy ms and five longest kernels,
+   B1 10 launches for the raw labels; the checkpoint migration
+   (``scripts/migrate_checkpoints.py``) as a subprocess on a temporary
+   directory with one legacy pickle, one npz file and one pickle naming
+   ``os.system``: 1 migrated, 1 skipped, 1 refused, exit code 1, the
+   migrated file's leaves equal to the bit under the port's loader, the
+   refused file unchanged; the graft entry (``graft_entry.entry``) on the
+   card: finite outputs, B1 4 and B2 2 launches a call, its ms; then
+   ``graft_entry.dryrun_multichip(2)`` and ``(4)`` on this card (gloo
+   ranks sharing it): the ``ok`` lines with meshes (2, 1) and (2, 2), per
+   rank B2 2 and B3 2 in the fusion step and B1 2 in each RG forward, every
+   rank's fusion loss within 1e-5 of one CPU process's step, and seconds;
 10. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel
    (B1 at each pixel-tile shape), the host time to enqueue one call, its
    plain version, ``torch.nn.functional.multi_head_attention_forward``
@@ -2344,25 +2366,14 @@ def phase_data_parallel(torch, np, kernels, api, out_dir):
                                         batch_size=WORKFLOW_BATCH, device="cuda")
     port = free_port()
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
-                               "--dp-port", str(port), "--dp-work", work],
-                              env={**os.environ, "LOCAL_RANK": "0"}, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(DP_WORLD)]
-    logs = []
-    for p in procs:
-        try:
-            logs.append(p.communicate(timeout=DP_RANK_TIMEOUT)[0])
-        except subprocess.TimeoutExpired:
-            tails = []
-            for q in procs:
-                q.kill()
-                tails.append(q.communicate()[0][-2000:])
-            fail(f"a rank of the two-rank run did not finish in {DP_RANK_TIMEOUT} s:\n"
-                 + "\n".join(tails))
+    try:
+        distributed.run_ranks([[sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                                "--dp-port", str(port), "--dp-work", work]
+                               for r in range(DP_WORLD)],
+                              [{**os.environ, "LOCAL_RANK": "0"}] * DP_WORLD, DP_RANK_TIMEOUT)
+    except RuntimeError as err:
+        fail(f"the two-rank run: {err}")
     wall = time.perf_counter() - t0
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            fail(f"rank {r} of the two-rank run exited {p.returncode}:\n{log[-4000:]}")
     ranks = []
     for r in range(DP_WORLD):
         with open(os.path.join(work, f"rank{r}.json")) as f:
@@ -2676,6 +2687,7 @@ def phase_model_axis(torch, np, kernels, api, out_dir):
     ``spatial_diffs``; launches per rank as stated. Returns the per-rank
     launches."""
     from camouflage_multimodal_tpu_torch.core.checkpoint import load_checkpoint
+    from camouflage_multimodal_tpu_torch.parallel.distributed import run_ranks
 
     _, want_fusion = dp_expected(np)
     _, fusion_steps = dp_steps(np)
@@ -2685,25 +2697,13 @@ def phase_model_axis(torch, np, kernels, api, out_dir):
     alone_spatial = mp_spatial(torch, np, kernels, api, None)
     port = free_port()
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-rank", str(r),
-                               "--mp-port", str(port), "--mp-work", work],
-                              env={**os.environ, "LOCAL_RANK": "0"}, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(MP_WORLD)]
-    logs = []
-    for p in procs:
-        try:
-            logs.append(p.communicate(timeout=MP_RANK_TIMEOUT)[0])
-        except subprocess.TimeoutExpired:
-            tails = []
-            for q in procs:
-                q.kill()
-                tails.append(q.communicate()[0][-2000:])
-            fail(f"a rank of the (1, 2) run did not finish in {MP_RANK_TIMEOUT} s:\n"
-                 + "\n".join(tails))
+    try:
+        run_ranks([[sys.executable, os.path.abspath(__file__), "--mp-rank", str(r),
+                    "--mp-port", str(port), "--mp-work", work] for r in range(MP_WORLD)],
+                  [{**os.environ, "LOCAL_RANK": "0"}] * MP_WORLD, MP_RANK_TIMEOUT)
+    except RuntimeError as err:
+        fail(f"the (1, 2) run: {err}")
     wall = time.perf_counter() - t0
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            fail(f"rank {r} of the (1, 2) run exited {p.returncode}:\n{log[-4000:]}")
     ranks, arrays = [], []
     for r in range(MP_WORLD):
         with open(os.path.join(work, f"rank{r}.json")) as f:
@@ -2975,6 +2975,181 @@ def phase_bench(torch, np, kernels, out_dir):
         fail("host ceiling did not measure the card")
     emit({"phase": "bench", "seconds": time.perf_counter() - t0})
     return launches
+
+
+SCRIPTS_SERVE = dict(size=256, batch=8, n_requests=40)
+SCRIPTS_CONN = ["--batch", "16", "--image-size", "352", "--n-segments", "500"]
+SCRIPTS_ENTRY_CALLS = 5
+SCRIPTS_SERVED_BAR = 1e-5  # served floats against predict_batch alone (as phase 9a)
+SCRIPTS_DRY_LOSS_BAR = 1e-5  # the dry runs' loss against one CPU process's step (itself
+                             # held within 1e-5 of the JAX step by tests/test_torch_port_scripts.py)
+
+
+class _NamesSystem:
+    """Pickles as a call of ``os.system``; the migration must refuse it."""
+
+    def __reduce__(self):
+        return os.system, ("true",)
+
+
+def per_forward(forwards: int, b1: int, b2: int, b3: int = 0) -> dict:
+    return {"slic_assign": b1 * forwards, "fused_mha": b2 * forwards,
+            "fused_mha_bwd": b3 * forwards}
+
+
+def phase_scripts(torch, np, kernels, api, out_dir):
+    """Phase 9g: the serve latency A/B, the connectivity profile, the
+    checkpoint migration and the graft entry with its dry runs (module
+    docstring). Returns each path's launches."""
+    import pickle
+
+    from camouflage_multimodal_tpu_torch import graft_entry
+    from camouflage_multimodal_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+    from camouflage_multimodal_tpu_torch.scripts import (
+        migrate_checkpoints, profile_connectivity, serve_latency_ab)
+
+    t_phase = time.perf_counter()
+    image_dir = os.path.join(out_dir, "bench_images")     # phase 9f's scenes
+    launches = {}
+
+    # Serve latency A/B.
+    pred = api.MultimodalPredictor(*ARTIFACTS, device="cuda")
+    t0 = time.perf_counter()
+    ab, responses, images = serve_latency_ab.run(device="cuda", image_dir=image_dir,
+                                                 predictor=pred, **SCRIPTS_SERVE)
+    seconds = time.perf_counter() - t0
+    alone = [pred.predict_batch(images[i:i + 1]) for i in range(len(images))]
+    worst = {}
+    for mode, served in responses.items():
+        worst[mode] = max(float(np.abs(res[k] - alone[i % len(images)][k][0]).max())
+                          for i, res in enumerate(served) for k in ("heatmap", "score"))
+    emit({"phase": "serve_latency_ab", "seconds": seconds, "record": ab,
+          "max_abs_diff_vs_alone": worst})
+    for mode, rec in ab["modes"].items():
+        want = per_forward(rec["forwards"], SLIC_ITERS, 2)
+        if rec["kernel_launches"] != want:
+            fail(f"serve_latency_ab {mode}: launches {rec['kernel_launches']}, expected {want}")
+        if rec["mean_batch_occupancy"] != 1.0 or not 0 < rec["p50_ms"] <= rec["p95_ms"]:
+            fail(f"serve_latency_ab {mode}: occupancy or latencies wrong: {rec}")
+        if worst[mode] > SCRIPTS_SERVED_BAR:
+            fail(f"serve_latency_ab {mode}: a response is {worst[mode]} from predict_batch "
+                 f"alone (bar {SCRIPTS_SERVED_BAR})")
+        launches[f"serve_latency_ab_{mode}"] = rec["kernel_launches"]
+    if (ab["modes"]["bucketed"]["buckets"], ab["modes"]["fixed_batch"]["buckets"]) != (
+            [1, 2, 4, 8], [8]):
+        fail(f"serve_latency_ab buckets: {ab['modes']}")
+
+    # Connectivity profile.
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    conn = profile_connectivity.main(SCRIPTS_CONN + ["--device", "cuda",
+                                                     "--image-dir", image_dir])
+    got = dict(kernels.LAUNCHES)
+    emit({"phase": "profile_connectivity", "seconds": time.perf_counter() - t0,
+          "launches": got, **conn})
+    if got != per_forward(1, SLIC_ITERS, 0):
+        fail(f"profile_connectivity launched {got}, expected B1 {SLIC_ITERS} alone")
+    if not (isinstance(conn["device"], dict) and all(
+            isinstance(v["device_busy_ms"], float) and len(v["top_kernels"]) == 5
+            for v in conn["device"].values())):
+        fail(f"profile_connectivity has no device breakdown: {conn['device']}")
+    if not (conn["cc_ms"] > 0 and conn["full_ms"] > conn["cc_ms"]
+            and len(conn["cc_sweeps_per_image"]) == 16 and min(conn["cc_sweeps_per_image"]) > 0):
+        fail(f"profile_connectivity: implausible numbers {conn}")
+    launches["profile_connectivity"] = got
+
+    # Checkpoint migration, as a subprocess on a directory of its own.
+    work = os.path.join(out_dir, "migrate")
+    os.makedirs(work)
+    rng = np.random.default_rng(3)
+    payload = {"epoch": 2, "params": {"w": rng.standard_normal((4, 3)).astype(np.float32)},
+               "history": [0.5, 0.25], "name": "fusion"}
+    with open(os.path.join(work, "legacy.ckpt"), "wb") as f:
+        pickle.dump(payload, f, protocol=4)
+    save_checkpoint(os.path.join(work, "npz.ckpt"), {"epoch": 1})
+    with open(os.path.join(work, "refused.ckpt"), "wb") as f:
+        pickle.dump({"hook": _NamesSystem()}, f)
+    with open(os.path.join(work, "refused.ckpt"), "rb") as f:
+        refused_bytes = f.read()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m",
+                          "camouflage_multimodal_tpu_torch.scripts.migrate_checkpoints", work],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    lines = res.stdout.splitlines()
+    counts = {k: sum(ln.startswith(k + " ") for ln in lines)
+              for k in ("migrated", "already npz", "refused")}
+    back = load_checkpoint(os.path.join(work, "legacy.ckpt"))
+    want_leaves = dict(migrate_checkpoints._leaves(payload))
+    got_leaves = dict(migrate_checkpoints._leaves(back))
+    same = got_leaves.keys() == want_leaves.keys() and all(
+        np.array_equal(np.asarray(got_leaves[p]), np.asarray(v)) for p, v in want_leaves.items())
+    with open(os.path.join(work, "refused.ckpt"), "rb") as f:
+        untouched = f.read() == refused_bytes
+    emit({"phase": "migrate_checkpoints", "seconds": time.perf_counter() - t0,
+          "returncode": res.returncode, "counts": counts, "output": lines,
+          "migrated_equal": same, "refused_untouched": untouched})
+    if (res.returncode, counts) != (1, {"migrated": 1, "already npz": 1, "refused": 1}) \
+            or not same or not untouched:
+        fail(f"migrate_checkpoints: exit {res.returncode}, counts {counts}, equal {same}, "
+             f"refused file untouched {untouched}\n{res.stderr[-2000:]}")
+
+    # Graft entry and the multichip dry runs.
+    fn, args = graft_entry.entry("cuda")
+    fn(*args)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    ms = []
+    for _ in range(SCRIPTS_ENTRY_CALLS):
+        t0 = time.perf_counter()
+        outs = fn(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    got = dict(kernels.LAUNCHES)
+    finite = all(bool(torch.isfinite(t).all()) for t in outs)
+    emit({"phase": "graft_entry", "ms": sorted(ms)[len(ms) // 2], "calls": len(ms),
+          "launches": got, "shapes": [list(t.shape) for t in outs], "finite": finite})
+    if got != per_forward(SCRIPTS_ENTRY_CALLS, 4, 2) or not finite:
+        fail(f"graft_entry: launches {got} over {SCRIPTS_ENTRY_CALLS} calls "
+             f"(expected B1 4, B2 2 a call), finite {finite}")
+    launches["graft_entry"] = got
+    cpu_loss = graft_entry.fusion_step(2, None, "cpu")   # data axis 2 in both dry runs
+    for n, mesh in ((2, [2, 1]), (4, [2, 2])):
+        t0 = time.perf_counter()
+        dry = graft_entry.dryrun_multichip(n, device="cuda")
+        emit({"phase": "dryrun_multichip", "n_devices": n,
+              "seconds": time.perf_counter() - t0, "cpu_fusion_loss": cpu_loss,
+              "fusion_loss_abs_diff_to_cpu": abs(dry["fusion_loss"] - cpu_loss), **dry})
+        if dry["mesh"] != mesh or not abs(dry["fusion_loss"] - cpu_loss) <= SCRIPTS_DRY_LOSS_BAR:
+            fail(f"dryrun_multichip({n}): mesh {dry['mesh']}, loss {dry['fusion_loss']} "
+                 f"against one CPU process's {cpu_loss} (bar {SCRIPTS_DRY_LOSS_BAR})")
+        for rank in dry["ranks"]:
+            want = {"fusion_step": per_forward(1, 0, 2, 2),
+                    "data_parallel": per_forward(1, 2, 0)}
+            if mesh[1] > 1:
+                want["spatial"] = per_forward(1, 2, 0)
+            got = {k: rank[k]["launches"] for k in want}
+            if got != want or ("spatial" in rank) != (mesh[1] > 1):
+                fail(f"dryrun_multichip({n}) rank {rank['rank']}: launches {got}, "
+                     f"expected {want}")
+            if rank["fusion_loss"] != dry["fusion_loss"] or not rank["data_parallel"]["finite"]:
+                fail(f"dryrun_multichip({n}) rank {rank['rank']} disagrees with rank 0")
+        launches[f"dryrun_multichip_{n}"] = [
+            {k: rank[k]["launches"] for k in ("fusion_step", "data_parallel", "spatial")
+             if k in rank} for rank in dry["ranks"]]
+    emit({"phase": "scripts", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def scripts_launches(launches, name):
+    """One kernel's launches of each phase-9g path (per rank for the dry
+    runs)."""
+    out = {}
+    for path, got in launches.items():
+        if isinstance(got, list):
+            out[path] = [sum(part[name] for part in rank.values()) for rank in got]
+        else:
+            out[path] = got[name]
+    return out
 
 
 def phase_slice(torch, np, kernels, api, n_batches):
@@ -3398,6 +3573,7 @@ def main() -> None:
         mp_kernels = phase_model_axis_kernels(torch, kernels, attention_mod, fusion_model)
         mp_launches = phase_model_axis(torch, np, kernels, api, out_dir)
         bench_launches = phase_bench(torch, np, kernels, out_dir)
+        script_launches = phase_scripts(torch, np, kernels, api, out_dir)
     (b1_ms, b1_host, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
         torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches, trace)
     b3, b3_bound = phase_times_train(torch, kernels, attention_mod, b3_cases, trainer,
@@ -3426,6 +3602,7 @@ def main() -> None:
                                              for r in dp_launches["ranks"]],
          "launches_model_axis_per_rank": [dp_total(r, "slic_assign") for r in mp_launches],
          "launches_bench": {row: v["slic_assign"] for row, v in bench_launches.items()},
+         "launches_scripts": scripts_launches(script_launches, "slic_assign"),
          "per_rg_training": "1 launch: one SLIC assignment of 16 images of 256^2 against K=529",
          "max_abs_err": b1["max_abs_err"],
          "ms": b1_ms, "host_ms": b1_host, "plain_ms": b1_plain, "bound_ms": b1_bound[0],
@@ -3450,6 +3627,7 @@ def main() -> None:
                                              for r in dp_launches["ranks"]],
          "launches_model_axis_per_rank": [dp_total(r, "fused_mha") for r in mp_launches],
          "launches_bench": {row: v["fused_mha"] for row, v in bench_launches.items()},
+         "launches_scripts": scripts_launches(script_launches, "fused_mha"),
          **mp_rank_shapes(mp_kernels, "fused_mha"),
          "ms_training_shapes": sum(v["fused_mha_ms"] for v in b3.values()),
          "max_abs_err": b2_err,
@@ -3471,6 +3649,7 @@ def main() -> None:
                                              for r in dp_launches["ranks"]],
          "launches_model_axis_per_rank": [dp_total(r, "fused_mha_bwd") for r in mp_launches],
          "launches_bench": {row: v["fused_mha_bwd"] for row, v in bench_launches.items()},
+         "launches_scripts": scripts_launches(script_launches, "fused_mha_bwd"),
          **mp_rank_shapes(mp_kernels, "fused_mha_bwd"),
          "ms": sum(v["ms"] for v in b3.values()),
          "host_ms": sum(v["host_ms"] for v in b3.values()),

@@ -151,7 +151,8 @@ for needed in ("train.train_fusion", "train.losses", "train.schedules", "train.s
                "core.stages", "data.cod10k", "data.labels", "data.matcher", "extract",
                "eval.metrics", "eval.curves", "utils.metrics", "parallel",
                "parallel.distributed", "parallel.sharding", "bench", "scripts.bench_sweep",
-               "scripts.profile_stages", "scripts.host_ceiling"):
+               "scripts.profile_stages", "scripts.host_ceiling", "scripts.migrate_checkpoints",
+               "scripts.serve_latency_ab", "scripts.profile_connectivity", "graft_entry"):
     assert pkg.__name__ + "." + needed in names, needed
 print("BAD", bad)
 """
