@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from camouflage_multimodal_tpu_torch import native
 from camouflage_multimodal_tpu_torch.convert import (
     fusion_state_dict, knowledge_graph_state_dict, region_graph_state_dict)
 from camouflage_multimodal_tpu_torch.core import stages
@@ -291,7 +292,8 @@ def evaluate_directory(checkpoint_path: str, image_dir: str, gt_dir: str,
                        data_parallel: Optional[bool] = None,
                        image_size: int = 256,
                        feature_norm: Optional[int] = None,
-                       device: str | torch.device = "cuda") -> Dict[str, float]:
+                       device: str | torch.device = "cuda",
+                       use_native: bool = True) -> Dict[str, float]:
     """Batched RG evaluation: the mean and std of every metric of
     :func:`eval.metrics.evaluate_segmentation` plus the curve scalars of
     :func:`eval.curves.batch_curve_metrics`, computed on ``device``.
@@ -302,7 +304,9 @@ def evaluate_directory(checkpoint_path: str, image_dir: str, gt_dir: str,
     ``feature_norm=256`` runs the reference's /256 position normalization
     for reference-recipe weights at other sizes. Decode ∥ upload ∥ compute
     ∥ download overlap as in :mod:`extract`; every batch is padded to
-    ``batch_size``.
+    ``batch_size``. Images decode through the native threaded loader
+    (:mod:`native`; a file it rejects is decoded again with PIL, as in the
+    JAX package), or through PIL with ``use_native=False``.
 
     ``data_parallel`` spreads every padded batch over the ranks of the
     process group (:mod:`parallel.distributed`): each rank decodes and runs
@@ -346,8 +350,14 @@ def evaluate_directory(checkpoint_path: str, image_dir: str, gt_dir: str,
     def decode(pairs):
         """(uint8 images, float masks) of this rank's GT-paired files."""
         pairs = pairs[mine]
-        return ([load_image_u8(os.path.join(image_dir, f), size) for f, _ in pairs],
-                [load_mask(g, size) for _, g in pairs])
+        paths = [os.path.join(image_dir, f) for f, _ in pairs]
+        if use_native and paths:
+            batch, ok = native.load_batch_u8(paths, size)
+            images = [one if good else load_image_u8(p, size)
+                      for p, one, good in zip(paths, batch, ok)]
+        else:
+            images = [load_image_u8(p, size) for p in paths]
+        return images, [load_mask(g, size) for _, g in pairs]
 
     def upload(decoded):
         images, masks = decoded

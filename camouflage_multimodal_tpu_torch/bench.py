@@ -9,8 +9,10 @@ the per-pixel heatmap), measured three ways:
   batch i + 1, then pull batch i's ``score[0, 0]`` to the host; the drain
   pulls the last one, so every timed batch ends in a device→host pull;
 * **batch-1 p50**: one image a call, each call ending in the pull;
-* **end to end**: decode ∥ upload ∥ compute as three stages — PIL decode on
-  one worker thread, the host→device copy from pinned memory on a second
+* **end to end**: decode ∥ upload ∥ compute as three stages — the native
+  threaded decode (:mod:`native`, PIL's bytes) on one worker thread that
+  fans each batch out over up to 8 threads of the library's own, the
+  host→device copy from pinned memory on a second
   worker and a CUDA stream of its own (the compute stream waits on its
   event), the pipeline on the caller's thread. Best and median of
   ``BENCH_E2E_PASSES`` passes, and the best pass with draft JPEG decode.
@@ -55,6 +57,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from camouflage_multimodal_tpu_torch import native
 from camouflage_multimodal_tpu_torch.core import kernels
 from camouflage_multimodal_tpu_torch.core.device import resolve_device
 from camouflage_multimodal_tpu_torch.data.cod10k import load_image_rgb, load_image_u8
@@ -121,10 +124,17 @@ def load_images(paths: Sequence[str], n: int, size: int) -> np.ndarray:
     return np.stack([load_image_rgb(p, size) for p in cycled(paths, n)])
 
 
-def decode_batch_u8(paths: Sequence[str], size: int, draft: bool = False) -> np.ndarray:
-    """(len(paths), size, size, 3) uint8 through PIL (draft JPEG decode
-    with ``draft``)."""
-    return np.stack([load_image_u8(p, size, draft=draft) for p in paths])
+def decode_batch_u8(paths: Sequence[str], size: int, draft: bool = False,
+                    use_native: bool = True) -> np.ndarray:
+    """(len(paths), size, size, 3) uint8 through the native threaded
+    decoder, or PIL with ``use_native=False`` (draft JPEG decode with
+    ``draft``). A file that does not decode raises."""
+    if not use_native:
+        return np.stack([load_image_u8(p, size, draft=draft) for p in paths])
+    batch, ok = native.load_batch_u8(paths, size, draft=draft)
+    if not ok.all():
+        raise IOError(f"native decode failed for {[p for p, g in zip(paths, ok) if not g]}")
+    return batch
 
 
 def build_models(cfg: BenchConfig, device: torch.device):
@@ -233,14 +243,14 @@ def on_compute_stream(uploaded):
 
 
 def run_e2e(forward: Callable, path_batches: Sequence[Sequence[str]], cfg: BenchConfig,
-            device: torch.device, draft: bool) -> float:
+            device: torch.device, draft: bool, use_native: bool = True) -> float:
     """One pass of decode ∥ upload ∥ compute over ``cfg.e2e_iters``
     batches; images per second. Batch i's scalar is pulled after batch
     i + 1 is dispatched; the last one in the drain."""
     upload = Uploader(device, (cfg.batch, cfg.image_size, cfg.image_size, 3))
 
     def decode(pb):
-        return decode_batch_u8(pb, cfg.image_size, draft=draft)
+        return decode_batch_u8(pb, cfg.image_size, draft=draft, use_native=use_native)
 
     pull(forward(on_compute_stream(upload(decode(path_batches[0])))))   # warm
     n = len(path_batches)

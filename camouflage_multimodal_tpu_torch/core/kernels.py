@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
 import torch
 
@@ -80,11 +80,18 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
-def _library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+def build_path(name: str, sources: Iterable[Path], flags: Sequence[str]) -> Path:
+    """``_build/lib<name>-<hash>.so``, the hash taken over ``flags`` and the
+    bytes of every source, so a changed source or flag never loads a stale
+    library (the host libraries of ``native.py`` are named the same way)."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _library_path(name: str) -> Path:
+    return build_path(name, sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"], NVCC_FLAGS)
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:

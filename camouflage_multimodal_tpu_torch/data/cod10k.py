@@ -1,11 +1,12 @@
 """COD10K naming, image decode and the RG training dataset.
 
 The port's own copy of ``camouflage_multimodal_tpu/data/cod10k.py``
-(``parse_cod10k_name``, ``load_image_rgb``, ``load_mask``, ``CODDataset``
-with its PIL decode; the JAX package's native loader is bit-identical to
-PIL by its own docstring and is not ported: ``load_image_u8`` gives its
-uint8 output, with its ``draft`` decode through ``Image.draft``). PIL is
-imported where it is used.
+(``parse_cod10k_name``, ``load_image_rgb``, ``load_mask``, ``CODDataset``):
+the single-image loaders decode with PIL (``load_image_u8`` gives the uint8
+bytes, with a ``draft`` decode through ``Image.draft``), and
+``CODDataset.load_batch`` decodes through the port's native threaded loader
+(:mod:`native`, bit-identical to PIL) unless asked for PIL. PIL is imported
+where it is used.
 """
 
 from __future__ import annotations
@@ -69,13 +70,26 @@ class CODSample:
 
 class CODDataset:
     """The images of ``img_dir`` that have all three GT maps (object,
-    instance, edge: ``{base}.png`` in each directory), decoded with PIL and
-    resized to ``image_size`` (bicubic, ``Image.resize``'s default)."""
+    instance, edge: ``{base}.png`` in each directory), resized to
+    ``image_size`` (bicubic, ``Image.resize``'s default).
+
+    ``use_native`` (``None`` or ``True``, the default) decodes each batch
+    with four threaded calls of the native loader (:mod:`native`: libjpeg /
+    libpng and PIL's fixed-point bicubic, the same bytes as PIL); the
+    library is built here and a failed build raises. A batch with a file
+    the native decoder rejects is decoded again with PIL, as the JAX
+    dataset does. ``False`` decodes with PIL."""
 
     def __init__(self, img_dir: str, mask_dir: str, instance_dir: str,
-                 edge_dir: str, image_size: int = 256) -> None:
+                 edge_dir: str, image_size: int = 256,
+                 use_native: Optional[bool] = None) -> None:
         self.img_dir = img_dir
         self.image_size = image_size
+        self.use_native = use_native is not False
+        if self.use_native:
+            from camouflage_multimodal_tpu_torch import native
+
+            native.get_lib()
         self.samples: List[CODSample] = []
         for img_name in sorted(f for f in os.listdir(img_dir)
                                if f.lower().endswith(IMAGE_EXTS)):
@@ -99,7 +113,24 @@ class CODDataset:
         }
 
     def load_batch(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
+        samples = [self.samples[i] for i in indices]
+        names = [s.image_name for s in samples]
+        if self.use_native:
+            from camouflage_multimodal_tpu_torch import native
+
+            S = self.image_size
+            images, ok = native.load_batch([s.image_path for s in samples], S)
+            out = {"image": images}
+            for key, attr in (("mask", "mask_path"), ("instance", "instance_path"),
+                              ("edge", "edge_path")):
+                out[key], ok_k = native.load_batch([getattr(s, attr) for s in samples], S,
+                                                   gray=True)
+                ok &= ok_k
+            if ok.all():
+                out["image_name"] = names
+                return out
+            # a file the native decoder rejected: the batch through PIL
         items = [self.load(i) for i in indices]
         out = {k: np.stack([it[k] for it in items]) for k in ("image", "mask", "instance", "edge")}
-        out["image_name"] = [it["image_name"] for it in items]
+        out["image_name"] = names
         return out

@@ -6,9 +6,9 @@ extracts each image's node embeddings (N, 128) and graph embedding
 ``embedding_summary.json`` with the same schema and, with
 ``save_individual``, ``<base>_embedding.npz`` per image. Images go through
 the pipeline in device batches (padded to ``batch_size``), with decode ∥
-upload ∥ compute ∥ download overlapped (:mod:`core.stages`; decode on a
-PIL thread — the JAX package's native loader is bit-identical to PIL by
-its own docstring). Each record keeps only the image's real nodes: the
+upload ∥ compute ∥ download overlapped (:mod:`core.stages`); a batch
+decodes through the native threaded loader (:mod:`native`, the same bytes
+as PIL). Each record keeps only the image's real nodes: the
 padding rows are stripped by ``node_mask``. The pipeline's graph build
 launches kernel B1 ``num_iters`` times per batch.
 """
@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from camouflage_multimodal_tpu_torch import native
 from camouflage_multimodal_tpu_torch.core import stages
 from camouflage_multimodal_tpu_torch.core.artifacts import save_rg_embeddings
 from camouflage_multimodal_tpu_torch.data.cod10k import IMAGE_EXTS, load_image_u8
@@ -50,7 +51,9 @@ def batch_extract_embeddings(pipeline: RegionGraphPipeline, image_dir: str,
                              log_fn=print) -> Tuple[Dict, Dict]:
     """Extract every image of ``image_dir`` (sorted; the first
     ``max_images``) and write the stores into ``output_dir``. Returns
-    (image name → {node_embeddings, graph_embedding, num_nodes}, summary)."""
+    (image name → {node_embeddings, graph_embedding, num_nodes}, summary).
+    An image the native decoder rejects is recorded as failed and
+    skipped, as in the JAX package."""
     os.makedirs(output_dir, exist_ok=True)
     image_files = sorted(f for f in os.listdir(image_dir) if f.lower().endswith(IMAGE_EXTS))
     if max_images:
@@ -74,12 +77,14 @@ def batch_extract_embeddings(pipeline: RegionGraphPipeline, image_dir: str,
         """uint8 images of the chunk that decode; a failure is logged in
         ``failed`` and the image skipped."""
         images, names = [], []
-        for f in chunk:
-            try:
-                images.append(load_image_u8(os.path.join(image_dir, f), pipeline.image_size))
+        batch, ok = native.load_batch_u8([os.path.join(image_dir, f) for f in chunk],
+                                         pipeline.image_size)
+        for f, one, good in zip(chunk, batch, ok):
+            if good:
+                images.append(one)
                 names.append(f)
-            except Exception as e:  # decode fault tolerance
-                failed.append((f, str(e)))
+            else:
+                failed.append((f, "native decode failed"))
         return images, names
 
     def upload(decoded):

@@ -6,8 +6,10 @@ by the slowest stage and, where the stages share the host's cores and its
 interpreter lock, by the host CPU work they add up to. This script
 measures each stage alone at the bench's shapes:
 
-* ``decode_{full,draft}_ms_per_img`` — PIL decode + resize on one thread,
-  as the bench's decode worker runs it (full, and draft JPEG decode);
+* ``decode_{full,draft}_ms_per_img`` — the native decode + resize of a
+  batch (:mod:`native`) as the bench's decode worker runs it, at the
+  library's default thread count (``decode_threads``), full and draft
+  JPEG decode (wall ms an image of the batch);
 * ``transfer_ms_per_img`` — a uint8 batch into a pinned buffer and onto
   the device on the upload stream, ending in that copy's event
   (``transfer_host_cpu_ms_per_img``: the process's CPU time for it);
@@ -42,6 +44,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from camouflage_multimodal_tpu_torch import native
 from camouflage_multimodal_tpu_torch.bench import (
     WARMUP, BenchConfig, Uploader, build_models, cycled, decode_batch_u8,
     device_only_times, image_paths)
@@ -69,7 +72,7 @@ def measure(cfg: BenchConfig, device: str, image_dir: str) -> Dict:
     paths = cycled(paths, 2 * B)
     pb = [paths[:B], paths[B:]]
 
-    # --- decode stage (one thread, as the bench's decode worker) ----------
+    # --- decode stage (the native decoder, as the bench's decode worker) ---
     arrs = [decode_batch_u8(p, S) for p in pb]          # warms the page cache
     dec_full = med_of(lambda: decode_batch_u8(pb[0], S)) / B
     dec_draft = med_of(lambda: decode_batch_u8(pb[0], S, draft=True)) / B
@@ -109,6 +112,7 @@ def measure(cfg: BenchConfig, device: str, image_dir: str) -> Dict:
         "batch": B, "image_size": S,
         "decode_full_ms_per_img": round(dec_full * 1e3, 3),
         "decode_draft_ms_per_img": round(dec_draft * 1e3, 3),
+        "decode_threads": native.default_threads(),
         "transfer_ms_per_img": round(tx_ms * 1e3, 3),
         "transfer_host_cpu_ms_per_img": round(tx_cpu_ms, 3),
         "transfer_wall_check_ms_per_img": round(tx_wall_check, 3),

@@ -22,7 +22,9 @@ lazy names) with the optional Neo4j export, the port's bench, bench
 sweep, stage profile and host ceiling at the JAX bench's four
 configurations, and the JAX system's last entry points on the port: the
 serve latency A/B, the connectivity profile, the checkpoint migration and
-the graft entry with its multichip dry run.
+the graft entry with its multichip dry run, and the JAX package's native
+host data path on the port (the threaded C++ decoder under the bench's end
+to end, and the C++ graph builder).
 
 Phases, each failing the run (nonzero exit, no result line) when it fails:
 
@@ -31,7 +33,9 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    where their package is present, and a skipped step prints a line of its
    own;
 1. build every CUDA kernel of ``camouflage_multimodal_tpu_torch/csrc`` with
-   nvcc (one process per source, all started together);
+   nvcc (one process per source, all started together) and, beside them,
+   the two host libraries of ``csrc/host`` with g++ (``native.py``), each
+   one's seconds printed;
 2. kernel B1 ``slic_assign`` against its plain PyTorch version at the main
    path's shapes (4 images of 256², K = 529 centers, step 11), on the seed
    centers, on centers from a real SLIC state and on jittered centers, with
@@ -273,6 +277,22 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    ranks sharing it): the ``ok`` lines with meshes (2, 1) and (2, 2), per
    rank B2 2 and B3 2 in the fusion step and B1 2 in each RG forward, every
    rank's fusion loss within 1e-5 of one CPU process's step, and seconds;
+9h. the native host data path (``native``), on 9f's JPEG scenes: the
+   threaded decoder's uint8 batch of all 64 scenes at 352² equal to the
+   bit to PIL's (``data.load_image_u8``), and its float gray batch of 8
+   seeded 1024 × 768 PNG masks equal to the bit to ``data.load_mask``; the
+   decode ms an image of a batch of 16 at 352² with 1, 2, 4 and 8 threads
+   and the host's core count, full and draft, beside PIL's on one thread;
+   the bench's end to end (``bench.run_e2e``, its decode ∥ upload ∥
+   compute loop) at 352² / 16 on the bench's models, native and PIL in
+   turns, two passes each, full and draft: ``value``, e2e median and draft
+   rate for each decoder, exactly 10 B1 and 2 B2 launches per forward of
+   each, native batches counted in the native runs and none in the PIL
+   runs; the C++ graph builder on one 256² scene (500 segments, the
+   640-node bucket) against the card's ``pipeline.build_region_graphs``:
+   SLIC agreement > 0.97, Canny IoU > 0.95 (the card's ``ops.canny``), and
+   the card's ``region_features`` on the builder's own segmentation within
+   rtol 5e-3 / atol 5e-4 of its features on the nodes both keep;
 10. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel
    (B1 at each pixel-tile shape), the host time to enqueue one call, its
    plain version, ``torch.nn.functional.multi_head_attention_forward``
@@ -440,16 +460,47 @@ def bound_ms(n_bytes: float, n_ops: float):
 # Phases
 # ---------------------------------------------------------------------------
 
+NATIVE_BUILD = {}          # host library → seconds its build took (phase 1)
+
+
+def build_native():
+    """Build (or load) the port's two host libraries with g++, timing each."""
+    from camouflage_multimodal_tpu_torch import native
+
+    for name in native.LIBRARIES:
+        t0 = time.perf_counter()
+        cached = native.library_path(name).exists()
+        native.library(name)
+        NATIVE_BUILD[name] = {"seconds": time.perf_counter() - t0, "cached": cached}
+
+
 def phase_build(kernels):
+    """nvcc for every CUDA kernel and, in a thread beside it, g++ for the
+    host libraries."""
+    import threading
+
     t0 = time.perf_counter()
+    errors = []
+
+    def host():
+        try:
+            build_native()
+        except RuntimeError as e:
+            errors.append(str(e))
+
+    thread = threading.Thread(target=host)
+    thread.start()
     reports = kernels.build_all()
     for name in kernels.KERNELS:
         kernels.library(name)
+    thread.join()
+    if errors:
+        fail(f"the host libraries did not build: {errors[0]}")
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in reports.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "ptxas": ptxas})
+          "ptxas": ptxas, "host_libraries": NATIVE_BUILD})
 
 
 def slic_state(torch, slic_mod, images_u8, iters: int, n_segments: int = 500):
@@ -1600,7 +1651,7 @@ def phase_workflow(torch, np, kernels, api, out_dir):
           "evaluation_images_per_second": WORKFLOW_IMAGES / eval_s,
           "rg_build_ms_per_batch_of_16": build_ms, "fusion_epoch_seconds": train_s,
           "test_dir_images_per_second": {k: WORKFLOW_IMAGES / v["seconds"] for k, v in tests.items()},
-          "note": "end to end from the files: PIL decode threads, uploads and downloads included; "
+          "note": "end to end from the files: native decode threads, uploads and downloads included; "
                   "first use of each entry point in this process"})
     total = {k: sum(s[k] for s in steps.values()) for k in kernels.LAUNCHES}
     return steps, total
@@ -1663,7 +1714,7 @@ def phase_overlap(torch, np, api, out_dir):
         rates[what]["serial_seconds_per_stage"] = {k: v / 2 for k, v in clock.items()}
     emit({"phase": "workflow_overlap", "images": OVERLAP_IMAGES, "batch": WORKFLOW_BATCH,
           "images_per_second": rates,
-          "note": "end to end from the files, PIL decode included; serial runs wait for "
+          "note": "end to end from the files, native decode included; serial runs wait for "
                   "each stage; evaluation loads its checkpoint in every run"})
 
 
@@ -2977,6 +3028,153 @@ def phase_bench(torch, np, kernels, out_dir):
     return launches
 
 
+NATIVE_THREADS = (1, 2, 4, 8)
+NATIVE_DECODE_REPS = 3     # median of this many decodes of a batch of 16
+NATIVE_MASKS = 8           # seeded PNG masks for the float gray decode
+NATIVE_E2E_PASSES = 2      # bench end-to-end passes a decoder, in turns
+NATIVE_GRAPH_SIZE, NATIVE_GRAPH_SEGMENTS = 256, 500
+
+
+def phase_native(torch, np, kernels, out_dir):
+    """Phase 9h: the native host data path (module docstring). Returns the
+    launches of its two bench end-to-end runs."""
+    from PIL import Image
+
+    from camouflage_multimodal_tpu_torch import bench, native
+    from camouflage_multimodal_tpu_torch.data.cod10k import load_image_u8, load_mask
+    from camouflage_multimodal_tpu_torch.ops.canny import canny
+    from camouflage_multimodal_tpu_torch.ops.image import rgb_to_gray
+    from camouflage_multimodal_tpu_torch.ops.regions import region_features
+    from camouflage_multimodal_tpu_torch.pipeline import build_region_graphs, padded_nodes
+
+    t_phase = time.perf_counter()
+    image_dir = os.path.join(out_dir, "bench_images")     # phase 9f's scenes
+    paths = bench.image_paths(image_dir, BENCH_JPEGS)
+    S, B = BENCH_CPU_SIZE, BENCH_CPU_BATCH
+
+    # (b) bytes and floats against PIL.
+    got, ok = native.load_batch_u8(paths, S)
+    want = np.stack([load_image_u8(p, S) for p in paths])
+    u8_diff = int((got != want).sum())
+    rng = np.random.default_rng(47)
+    w, h = BENCH_JPEG_SIZE
+    masks = []
+    for i in range(NATIVE_MASKS):
+        cy, cx, r = rng.integers(h // 4, 3 * h // 4), rng.integers(w // 4, 3 * w // 4), h // 5
+        yy, xx = np.mgrid[0:h, 0:w]
+        masks.append(os.path.join(out_dir, f"native_mask_{i}.png"))
+        Image.fromarray((((yy - cy) ** 2 + (xx - cx) ** 2 < r * r) * 255).astype(np.uint8)
+                        ).save(masks[-1])
+    got_m, ok_m = native.load_batch(masks, S, gray=True)
+    mask_diff = int((got_m != np.stack([load_mask(p, S) for p in masks])).sum())
+    emit({"phase": "native_equal", "jpegs": len(paths), "size": S, "all_ok": bool(ok.all()),
+          "u8_pixels_differing": u8_diff, "masks": len(masks), "masks_ok": bool(ok_m.all()),
+          "mask_floats_differing": mask_diff})
+    if not (ok.all() and ok_m.all()) or u8_diff or mask_diff:
+        fail(f"native decode differs from PIL: {u8_diff} bytes over {len(paths)} JPEGs, "
+             f"{mask_diff} floats over {len(masks)} masks")
+
+    # (c) decode ms an image of a batch of 16, by thread count.
+    batch = paths[:B]
+    counts = sorted(set(NATIVE_THREADS + (os.cpu_count() or 1,)))
+    decode = {}
+    for draft in (False, True):
+        for n in counts:
+            ts = []
+            for _ in range(NATIVE_DECODE_REPS):
+                t0 = time.perf_counter()
+                native.load_batch_u8(batch, S, n_threads=n, draft=draft)
+                ts.append(time.perf_counter() - t0)
+            decode[f"{'draft' if draft else 'full'}_{n}"] = sorted(ts)[len(ts) // 2] / B * 1e3
+    pil = {}
+    for draft in (False, True):
+        t0 = time.perf_counter()
+        bench.decode_batch_u8(batch, S, draft=draft, use_native=False)
+        pil["draft" if draft else "full"] = (time.perf_counter() - t0) / B * 1e3
+    emit({"phase": "native_decode_ms_per_image", "size": S, "batch": B,
+          "cpu_count": os.cpu_count(), "default_threads": native.default_threads(),
+          "native": decode, "pil_one_thread": pil})
+
+    # (d) the bench's end to end at 352² / 16, native and PIL in turns.
+    cfg = bench.BenchConfig(batch=B, image_size=S)
+    dev = torch.device("cuda")
+    pipe, kg = bench.build_models(cfg, dev)
+    forwards = [0]
+
+    def forward(images):
+        forwards[0] += 1
+        return pipe(images, kg)
+
+    cyc = bench.cycled(paths, 4 * B)
+    path_batches = [cyc[i * B:(i + 1) * B] for i in range(4)]
+    rates = {True: {False: [], True: []}, False: {False: [], True: []}}
+    launches = {True: dict.fromkeys(kernels.LAUNCHES, 0), False: dict.fromkeys(kernels.LAUNCHES, 0)}
+    decoded = {True: 0, False: 0}
+    fwd = {True: 0, False: 0}
+    for draft in (False, True):
+        for _ in range(NATIVE_E2E_PASSES):
+            for use_native in (True, False):
+                kernels.reset_launches()
+                native.reset_counts()
+                forwards[0] = 0
+                rates[use_native][draft].append(
+                    bench.run_e2e(forward, path_batches, cfg, dev, draft, use_native))
+                for k, v in kernels.LAUNCHES.items():
+                    launches[use_native][k] += v
+                decoded[use_native] += native.DECODED["batches"]
+                fwd[use_native] += forwards[0]
+    e2e = {}
+    for use_native, name in ((True, "native"), (False, "pil")):
+        full = sorted(rates[use_native][False])
+        e2e[name] = {"value": full[-1], "e2e_median_imgs_per_sec": float(np.median(full)),
+                     "draft_decode_imgs_per_sec": max(rates[use_native][True]),
+                     "passes_full": rates[use_native][False],
+                     "passes_draft": rates[use_native][True], "forwards": fwd[use_native],
+                     "launches": launches[use_native],
+                     "native_batches": decoded[use_native]}
+    emit({"phase": "native_bench_e2e", "size": S, "batch": B, "e2e_iters": cfg.e2e_iters,
+          "passes_per_decoder": NATIVE_E2E_PASSES, **e2e})
+    for name in ("native", "pil"):
+        rec = e2e[name]
+        want = per_forward(rec["forwards"], SLIC_ITERS, 2)
+        if rec["launches"] != want:
+            fail(f"native phase, {name} end to end: launches {rec['launches']}, expected {want}")
+        if not all(np.isfinite(rec[k]) and rec[k] > 0 for k in (
+                "value", "e2e_median_imgs_per_sec", "draft_decode_imgs_per_sec")):
+            fail(f"native phase, {name} end to end: a rate is not a positive number")
+    if e2e["native"]["native_batches"] == 0 or e2e["pil"]["native_batches"] != 0:
+        fail(f"native batches: {e2e['native']['native_batches']} in the native run, "
+             f"{e2e['pil']['native_batches']} in the PIL run")
+
+    # (e) the C++ graph builder against the card's graph build.
+    G, n_seg = NATIVE_GRAPH_SIZE, NATIVE_GRAPH_SEGMENTS
+    K = padded_nodes(n_seg, G)
+    img = load_image_u8(paths[0], G).astype(np.float32) / 255.0
+    t0 = time.perf_counter()
+    host = native.build_region_graph(img, n_segments=n_seg, max_nodes=K)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    x = torch.from_numpy(img).cuda()
+    card = build_region_graphs(x[None], n_segments=n_seg, max_nodes=K)
+    agree = float((card.segments[0].cpu().numpy() == host["segments"]).mean())
+    edges = canny(rgb_to_gray(x), sigma=2.0).cpu().numpy()
+    iou = float((edges & host["canny"]).sum() / max((edges | host["canny"]).sum(), 1))
+    seg = torch.from_numpy(host["segments"]).long().cuda()
+    reg = region_features(x[None], seg[None], torch.from_numpy(host["canny"]).cuda()[None], K)
+    both = host["node_mask"] & reg["node_mask"][0].cpu().numpy()
+    f_card, f_host = reg["features"][0].cpu().numpy()[both], host["features"][both]
+    feat_ok = bool(np.allclose(f_host, f_card, rtol=5e-3, atol=5e-4))
+    emit({"phase": "native_graph", "size": G, "n_segments": n_seg, "max_nodes": K,
+          "host_ms": host_ms, "clusters": host["num_clusters"], "slic_agreement": agree,
+          "canny_iou": iou, "nodes_compared": int(both.sum()),
+          "features_max_abs_diff": float(np.abs(f_host - f_card).max()),
+          "features_within_bar": feat_ok})
+    if agree <= 0.97 or iou <= 0.95 or not feat_ok:
+        fail(f"native graph builder vs the card: SLIC {agree}, Canny IoU {iou}, "
+             f"features within rtol 5e-3 / atol 5e-4: {feat_ok}")
+    emit({"phase": "native", "seconds": time.perf_counter() - t_phase})
+    return {name: e2e[name]["launches"] for name in ("native", "pil")}
+
+
 SCRIPTS_SERVE = dict(size=256, batch=8, n_requests=40)
 SCRIPTS_CONN = ["--batch", "16", "--image-size", "352", "--n-segments", "500"]
 SCRIPTS_ENTRY_CALLS = 5
@@ -3421,6 +3619,8 @@ def hand_kernel_names():
     csrc = os.path.join(REPO, "camouflage_multimodal_tpu_torch", "csrc")
     names = set()
     for name in os.listdir(csrc):
+        if not name.endswith((".cu", ".cuh")):
+            continue                                   # csrc/host: the C++ host libraries
         with open(os.path.join(csrc, name)) as f:
             names.update(re.findall(r"\b(\w+_kernel)\b", f.read()))
     return names
@@ -3574,6 +3774,7 @@ def main() -> None:
         mp_launches = phase_model_axis(torch, np, kernels, api, out_dir)
         bench_launches = phase_bench(torch, np, kernels, out_dir)
         script_launches = phase_scripts(torch, np, kernels, api, out_dir)
+        native_launches = phase_native(torch, np, kernels, out_dir)
     (b1_ms, b1_host, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
         torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches, trace)
     b3, b3_bound = phase_times_train(torch, kernels, attention_mod, b3_cases, trainer,
@@ -3603,6 +3804,7 @@ def main() -> None:
          "launches_model_axis_per_rank": [dp_total(r, "slic_assign") for r in mp_launches],
          "launches_bench": {row: v["slic_assign"] for row, v in bench_launches.items()},
          "launches_scripts": scripts_launches(script_launches, "slic_assign"),
+         "launches_native_e2e": {k: v["slic_assign"] for k, v in native_launches.items()},
          "per_rg_training": "1 launch: one SLIC assignment of 16 images of 256^2 against K=529",
          "max_abs_err": b1["max_abs_err"],
          "ms": b1_ms, "host_ms": b1_host, "plain_ms": b1_plain, "bound_ms": b1_bound[0],
@@ -3628,6 +3830,7 @@ def main() -> None:
          "launches_model_axis_per_rank": [dp_total(r, "fused_mha") for r in mp_launches],
          "launches_bench": {row: v["fused_mha"] for row, v in bench_launches.items()},
          "launches_scripts": scripts_launches(script_launches, "fused_mha"),
+         "launches_native_e2e": {k: v["fused_mha"] for k, v in native_launches.items()},
          **mp_rank_shapes(mp_kernels, "fused_mha"),
          "ms_training_shapes": sum(v["fused_mha_ms"] for v in b3.values()),
          "max_abs_err": b2_err,
@@ -3650,6 +3853,7 @@ def main() -> None:
          "launches_model_axis_per_rank": [dp_total(r, "fused_mha_bwd") for r in mp_launches],
          "launches_bench": {row: v["fused_mha_bwd"] for row, v in bench_launches.items()},
          "launches_scripts": scripts_launches(script_launches, "fused_mha_bwd"),
+         "launches_native_e2e": {k: v["fused_mha_bwd"] for k, v in native_launches.items()},
          **mp_rank_shapes(mp_kernels, "fused_mha_bwd"),
          "ms": sum(v["ms"] for v in b3.values()),
          "host_ms": sum(v["host_ms"] for v in b3.values()),

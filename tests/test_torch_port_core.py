@@ -133,16 +133,25 @@ def test_cuda_requested_without_a_card_raises():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax, flax and the JAX
-    package out of ``sys.modules``."""
+    """Importing every module of the port, and loading its host libraries,
+    leaves jax, flax and the JAX package out of ``sys.modules`` and maps no
+    file of the JAX package's ``native/`` directory."""
     code = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import camouflage_multimodal_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+from camouflage_multimodal_tpu_torch import native
+native.get_lib(), native.get_graph_lib()
+jax_native = os.path.join(os.getcwd(), "native") + os.sep
+with open("/proc/self/maps") as f:
+    mapped = {line.split()[-1] for line in f if "/" in line}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "camouflage_multimodal_tpu"))
+bad += sorted(p for p in mapped if p.startswith(jax_native))
+bad += [str(native.library_path(n)) for n in native.LIBRARIES
+        if not str(native.library_path(n)).startswith(os.path.join(pkg.__path__[0], "_build"))]
 assert len(names) >= 50, names
 for needed in ("train.train_fusion", "train.losses", "train.schedules", "train.state",
                "train.train_rg", "train.train_kg", "models.knowledge_graph", "kg.store",
@@ -152,7 +161,8 @@ for needed in ("train.train_fusion", "train.losses", "train.schedules", "train.s
                "eval.metrics", "eval.curves", "utils.metrics", "parallel",
                "parallel.distributed", "parallel.sharding", "bench", "scripts.bench_sweep",
                "scripts.profile_stages", "scripts.host_ceiling", "scripts.migrate_checkpoints",
-               "scripts.serve_latency_ab", "scripts.profile_connectivity", "graft_entry"):
+               "scripts.serve_latency_ab", "scripts.profile_connectivity", "graft_entry",
+               "native"):
     assert pkg.__name__ + "." + needed in names, needed
 print("BAD", bad)
 """

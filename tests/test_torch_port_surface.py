@@ -44,7 +44,6 @@ PORT_RENAMES = {
 BY_DESIGN = {
     "core.runtime": "XLA's persistent compile cache; the CUDA kernels cache their "
                     "builds by a hash of source and flags (core/kernels.py)",
-    "native": "the C++ host image loader; the port decodes with PIL, bit-identical",
     "ops.pallas_slic": "kernel B1, csrc/slic_assign.cu behind ops.slic.slic_assign",
     "ops.pallas_attention": "kernels B2 and B3, csrc/fused_mha*.cu behind "
                             "ops.attention.fused_mha",
