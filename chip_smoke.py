@@ -25,6 +25,9 @@ serve latency A/B, the connectivity profile, the checkpoint migration and
 the graft entry with its multichip dry run, and the JAX package's native
 host data path on the port (the threaded C++ decoder under the bench's end
 to end, and the C++ graph builder).
+The JAX system's quality and fidelity scripts run on the port too: the
+fidelity gate, the quality anchor, real-data RG training and the SLIC node
+cross-validation.
 
 Phases, each failing the run (nonzero exit, no result line) when it fails:
 
@@ -293,6 +296,33 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    SLIC agreement > 0.97, Canny IoU > 0.95 (the card's ``ops.canny``), and
    the card's ``region_features`` on the builder's own segmentation within
    rtol 5e-3 / atol 5e-4 of its features on the nodes both keep;
+9i. the quality and fidelity scripts (``scripts/fidelity_gate.py``,
+   ``quality_anchor.py``, ``train_rg_real.py``, ``slic_node_crossval.py``)
+   on a seeded tree in COD10K's layout in a temporary directory: phase 9's
+   scenes (22) and 7 ``COD10K-NonCAM-…`` scenes with empty GT, every output
+   under an ``--out`` root there. (a) the gate's ``graphs`` (the
+   reference side in ``tools/``, on the host) → ``train`` (6 epochs at
+   pos_weight 2: at 2 epochs every probability sits just above 0.5 and
+   the agreements are trivially 1) →
+   ``compare`` at 256² and 500 segments on a 3 / 3 split whose test side
+   holds a NonCAM image: the report's pixel agreements (verbatim and
+   corrected paint-back), heatmap MAE, model-only node agreement,
+   per-threshold agreement and IoU, B1 exactly 10 launches (one batch);
+   ``compare`` again with the port's side on the CPU: pixel and model-only
+   agreement within 1e-2 of the card's, in the means and on each image,
+   and each image's heatmap MAE against the reference within 1e-5; (b) ``quality_anchor`` ``train``
+   (1 epoch, B1 10: one build batch) and ``eval`` (B1 20: two rows of one
+   batch), the table printed; (c) ``train_rg_real --images 16
+   --eval-images 8 --eval-stride 4 --epochs 1`` (B1 30: the build, the
+   held-out set and its CAM-only subset), the report and seconds printed;
+   (d) ``slic_node_crossval`` against a summary in the reference's format
+   written from the port's CPU counts of 8 of the scenes, so that its
+   ``main`` (``--np-sample 4``, B1 10) reports the card's counts minus the
+   CPU's (median, p90 and max |Δ|, shares within 2 / 5 / 10 nodes), failing
+   if more than 1 % differ by more than 2 nodes;
+   (e) ``git status --porcelain`` of the checkout (where it is no git work
+   tree, a listing of its files outside the ignored directories) the same
+   after the phase as before it. The fusion stages do not run on the card;
 10. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel
    (B1 at each pixel-tile shape), the host time to enqueue one call, its
    plain version, ``torch.nn.functional.multi_head_attention_forward``
@@ -3175,6 +3205,183 @@ def phase_native(torch, np, kernels, out_dir):
     return {name: e2e[name]["launches"] for name in ("native", "pil")}
 
 
+QUALITY_CAM, QUALITY_NONCAM = 22, 7   # 29 scenes: NonCAM in the gate's test split and
+                                      # among train_rg_real's held-out images
+QUALITY_GATE = ["--n-train", "3", "--n-test", "3"]
+# Two epochs at the recipe's pos_weight leave every probe probability just
+# above 0.5, so every pixel is positive on both sides and agreement is
+# trivially 1; six at pos_weight 2 spread them across 0.5.
+QUALITY_GATE_TRAIN = ["--epochs", "6", "--pos-weight", "2"]
+QUALITY_RG_REAL = ["--images", "16", "--eval-images", "8", "--eval-stride", "4",
+                   "--epochs", "1"]
+QUALITY_COUNTED = 8        # scenes of the cross-validation summary (counted on the CPU)
+QUALITY_NP = 4             # --np-sample
+QUALITY_BAR = 1e-2         # card report vs CPU report: pixel and model-only agreement,
+                           # the means and each image's
+QUALITY_MAE_BAR = 1e-5     # card vs CPU, each image's heatmap MAE against the reference
+                           # (the card's mean MAE itself read 2.5e-5, card = CPU 0)
+QUALITY_IGNORED = ("__pycache__", "_build", "_archive", ".git")
+
+
+def write_quality_tree(np, root):
+    """Phase 9's scenes (``write_workflow_dataset``) and NonCAM scenes with
+    empty GT under ``root``; returns the sorted image names."""
+    from PIL import Image
+
+    _, names = write_workflow_dataset(np, root, QUALITY_CAM)
+    empty = np.zeros((SIZE, SIZE), np.uint8)
+    for i, (img, _, _) in enumerate(BlobDataset(np, QUALITY_NONCAM, seed=43).items):
+        base = f"COD10K-NonCAM-{1 + i % 4}-{ENVIRONMENTS[i % 4]}-{1 + i // 4}-Background-{900 + i}"
+        Image.fromarray(img).save(os.path.join(root, "images", base + ".jpg"), quality=95)
+        for key in ("gt_object", "gt_instance", "gt_edge"):
+            Image.fromarray(empty).save(os.path.join(root, key, base + ".png"))
+        names.append(base + ".jpg")
+    return sorted(names)
+
+
+def repo_state():
+    """``git status --porcelain`` of the checkout, or, where it is no git
+    work tree, (path, size, mtime) of its files outside the ignored
+    directories (build outputs, caches, ``artifacts/torch_port``)."""
+    res = subprocess.run(["git", "status", "--porcelain"], cwd=REPO, capture_output=True,
+                         text=True)
+    if res.returncode == 0:
+        return "git status --porcelain", res.stdout.splitlines()
+    files = []
+    for dirpath, dirs, names in os.walk(REPO):
+        dirs[:] = [d for d in dirs if d not in QUALITY_IGNORED
+                   and os.path.join(dirpath, d) != os.path.join(REPO, "artifacts", "torch_port")]
+        for name in names:
+            st = os.stat(os.path.join(dirpath, name))
+            files.append((os.path.relpath(os.path.join(dirpath, name), REPO), st.st_size,
+                          st.st_mtime_ns))
+    return "file listing", sorted(files)
+
+
+def expect_b1(launches, want_b1, what):
+    emit({"phase": "quality_launches", "of": what, "launches": launches,
+          "expected": per_forward(1, want_b1, 0)})
+    if launches != per_forward(1, want_b1, 0):
+        fail(f"{what} launched {launches}, expected B1 {want_b1} alone")
+
+
+def phase_quality(torch, np, kernels, out_dir):
+    """Phase 9i: the quality and fidelity scripts on a seeded tree (module
+    docstring). Returns each step's launches."""
+    from camouflage_multimodal_tpu_torch.scripts import (
+        fidelity_gate, quality_anchor, slic_node_crossval, train_rg_real)
+
+    t_phase = time.perf_counter()
+    state = repo_state()
+    root = os.path.join(out_dir, "quality", "tree")
+    out = os.path.join(out_dir, "quality", "out")
+    names = write_quality_tree(np, root)
+    saved = (fidelity_gate.REF_DATA, slic_node_crossval.REF_SUMMARY, slic_node_crossval.IMG_DIR)
+    fidelity_gate.REF_DATA = root
+    launches = {}
+    try:
+        # (a) The fidelity gate: graphs and train on the host, compare on the card.
+        seconds = {}
+        for stage, extra in (("graphs", []), ("train", QUALITY_GATE_TRAIN)):
+            t0 = time.perf_counter()
+            fidelity_gate.main(["--stage", stage, "--out", out] + QUALITY_GATE + extra)
+            seconds[stage] = time.perf_counter() - t0
+        _, seconds["compare"], got = counted(torch, kernels, lambda: fidelity_gate.main(
+            ["--stage", "compare", "--out", out] + QUALITY_GATE))
+        with open(os.path.join(out, "fidelity_report.json")) as f:
+            card = json.load(f)
+        _, test = fidelity_gate.quadruples(3, 3)
+        t0 = time.perf_counter()
+        cpu = fidelity_gate.stage_compare(test, out=out, device="cpu")
+        seconds["compare_cpu"] = time.perf_counter() - t0
+        keys = ("pixel_agreement_vs_reference_verbatim_paintback",
+                "pixel_agreement_vs_reference_corrected_paintback", "model_only_node_agreement")
+        diffs = {k: abs(card[k] - cpu[k]) for k in keys}
+        per_keys = ("pixel_agreement_verbatim", "pixel_agreement_corrected",
+                    "model_node_agreement", "heatmap_mae")
+        cpu_images = {r["image"]: r for r in cpu["per_image"]}
+        per_diffs = {k: max(abs(r[k] - cpu_images[r["image"]][k]) for r in card["per_image"])
+                     for k in per_keys}
+        emit({"phase": "quality_gate", "seconds": seconds, "test_images": card["n_test_images"],
+              "categories": sorted(card["per_category"]),
+              **{k: card[k] for k in keys + ("heatmap_mae_vs_reference", "iou_vs_gt_cam_only",
+                                             "agreement_by_threshold", "gate")},
+              "cpu": {k: cpu[k] for k in keys}, "card_vs_cpu": diffs,
+              "card_vs_cpu_max_per_image": per_diffs, "launches": got})
+        expect_b1(got, SLIC_ITERS * -(-card["n_test_images"] // fidelity_gate.BATCH),
+                         "fidelity_gate compare")
+        if ("NonCAM" not in card["per_category"] or set(cpu_images) != {
+                r["image"] for r in card["per_image"]} or max(diffs.values()) > QUALITY_BAR
+                or per_diffs["heatmap_mae"] > QUALITY_MAE_BAR
+                or max(per_diffs[k] for k in per_keys[:3]) > QUALITY_BAR):
+            fail(f"fidelity_gate: card vs CPU {diffs}, per image {per_diffs} (bars "
+                 f"{QUALITY_BAR}, heatmap MAE {QUALITY_MAE_BAR}), categories "
+                 f"{sorted(card['per_category'])}")
+        launches["fidelity_gate"] = got
+
+        # (b) The quality anchor on the gate's split.
+        _, t_train, got = counted(torch, kernels, lambda: quality_anchor.main(
+            ["--stage", "train", "--epochs", "1", "--out", out] + QUALITY_GATE))
+        expect_b1(got, SLIC_ITERS, "quality_anchor train (one build batch)")
+        launches["quality_anchor_train"] = got
+        _, t_eval, got = counted(torch, kernels, lambda: quality_anchor.main(
+            ["--stage", "eval", "--out", out] + QUALITY_GATE))
+        with open(os.path.join(out, "quality_table.json")) as f:
+            table = json.load(f)
+        emit({"phase": "quality_anchor", "train_seconds": t_train, "eval_seconds": t_eval,
+              "table": table, "launches": got})
+        expect_b1(got, 2 * SLIC_ITERS, "quality_anchor eval (two rows, a batch each)")
+        if set(table["rows"]) != {"reference_torch_trained_weights_in_jax_pipeline",
+                                  "jax_trained", "reference_composed_pipeline_iou"}:
+            fail(f"quality_anchor: rows {sorted(table['rows'])}")
+        launches["quality_anchor_eval"] = got
+
+        # (c) Real-data RG training on the tree.
+        report, t_rg, got = counted(torch, kernels, lambda: train_rg_real.main(
+            ["--data-root", root, "--out", os.path.join(out, "rg_real")] + QUALITY_RG_REAL))
+        emit({"phase": "train_rg_real", "seconds": t_rg, "report": report, "launches": got})
+        expect_b1(got, 3 * SLIC_ITERS, "train_rg_real (build, all, cam_only)")
+        if set(report) != {"protocol", "all", "cam_only"} or not all(
+                np.isfinite(v) for part in ("all", "cam_only") for v in report[part].values()):
+            fail(f"train_rg_real: report {report}")
+        launches["train_rg_real"] = got
+
+        # (d) Node counts on the card against the port's CPU counts on the same scenes.
+        counted_names = names[::len(names) // QUALITY_COUNTED][:QUALITY_COUNTED]
+        slic_node_crossval.IMG_DIR = os.path.join(root, "images")
+        t0 = time.perf_counter()
+        cpu_counts = slic_node_crossval.counts(counted_names, batch_size=1, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        summary = os.path.join(out_dir, "quality", "embedding_summary.json")
+        with open(summary, "w") as f:
+            json.dump({"images": {n: {"num_nodes": c} for n, c in cpu_counts.items()}}, f)
+        slic_node_crossval.REF_SUMMARY = summary
+        # main's "jax_vs_skimage" is then the card's counts minus the CPU's.
+        cross, t_main, got = counted(torch, kernels, lambda: slic_node_crossval.main(
+            ["--np-sample", str(QUALITY_NP), "--out", out]))
+        expect_b1(got, SLIC_ITERS, "slic_node_crossval main (one batch)")
+        delta = cross["jax_vs_skimage"]
+        emit({"phase": "slic_node_crossval", "cpu_seconds": t_cpu, "main_seconds": t_main,
+              "card_minus_cpu": {k: v for k, v in delta.items() if k != "per_category"},
+              "report": {k: cross[k] for k in ("jax_vs_skimage", "npport_vs_skimage")},
+              "launches": got})
+        if delta["pct_within_2"] < 99 or delta["n_images"] != len(counted_names):
+            fail(f"slic_node_crossval: {100 - delta['pct_within_2']} % of "
+                 f"{delta['n_images']} card counts differ from the CPU's by more than 2 nodes")
+        launches["slic_node_crossval"] = got
+    finally:
+        fidelity_gate.REF_DATA, slic_node_crossval.REF_SUMMARY, slic_node_crossval.IMG_DIR = saved
+
+    # (e) Nothing written into the checkout.
+    after = repo_state()
+    emit({"phase": "quality_checkout", "method": state[0], "unchanged": after == state})
+    if after != state:
+        changed = sorted(set(map(str, after[1])) ^ set(map(str, state[1])))
+        fail(f"the quality scripts changed the checkout: {changed[:10]}")
+    emit({"phase": "quality", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 SCRIPTS_SERVE = dict(size=256, batch=8, n_requests=40)
 SCRIPTS_CONN = ["--batch", "16", "--image-size", "352", "--n-segments", "500"]
 SCRIPTS_ENTRY_CALLS = 5
@@ -3775,6 +3982,7 @@ def main() -> None:
         bench_launches = phase_bench(torch, np, kernels, out_dir)
         script_launches = phase_scripts(torch, np, kernels, api, out_dir)
         native_launches = phase_native(torch, np, kernels, out_dir)
+        quality_launches = phase_quality(torch, np, kernels, out_dir)
     (b1_ms, b1_host, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
         torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches, trace)
     b3, b3_bound = phase_times_train(torch, kernels, attention_mod, b3_cases, trainer,
@@ -3805,6 +4013,7 @@ def main() -> None:
          "launches_bench": {row: v["slic_assign"] for row, v in bench_launches.items()},
          "launches_scripts": scripts_launches(script_launches, "slic_assign"),
          "launches_native_e2e": {k: v["slic_assign"] for k, v in native_launches.items()},
+         "launches_quality": {k: v["slic_assign"] for k, v in quality_launches.items()},
          "per_rg_training": "1 launch: one SLIC assignment of 16 images of 256^2 against K=529",
          "max_abs_err": b1["max_abs_err"],
          "ms": b1_ms, "host_ms": b1_host, "plain_ms": b1_plain, "bound_ms": b1_bound[0],
@@ -3831,6 +4040,7 @@ def main() -> None:
          "launches_bench": {row: v["fused_mha"] for row, v in bench_launches.items()},
          "launches_scripts": scripts_launches(script_launches, "fused_mha"),
          "launches_native_e2e": {k: v["fused_mha"] for k, v in native_launches.items()},
+         "launches_quality": {k: v["fused_mha"] for k, v in quality_launches.items()},
          **mp_rank_shapes(mp_kernels, "fused_mha"),
          "ms_training_shapes": sum(v["fused_mha_ms"] for v in b3.values()),
          "max_abs_err": b2_err,
@@ -3854,6 +4064,7 @@ def main() -> None:
          "launches_bench": {row: v["fused_mha_bwd"] for row, v in bench_launches.items()},
          "launches_scripts": scripts_launches(script_launches, "fused_mha_bwd"),
          "launches_native_e2e": {k: v["fused_mha_bwd"] for k, v in native_launches.items()},
+         "launches_quality": {k: v["fused_mha_bwd"] for k, v in quality_launches.items()},
          **mp_rank_shapes(mp_kernels, "fused_mha_bwd"),
          "ms": sum(v["ms"] for v in b3.values()),
          "host_ms": sum(v["host_ms"] for v in b3.values()),

@@ -162,7 +162,9 @@ for needed in ("train.train_fusion", "train.losses", "train.schedules", "train.s
                "parallel.distributed", "parallel.sharding", "bench", "scripts.bench_sweep",
                "scripts.profile_stages", "scripts.host_ceiling", "scripts.migrate_checkpoints",
                "scripts.serve_latency_ab", "scripts.profile_connectivity", "graft_entry",
-               "native"):
+               "native", "scripts.fidelity_gate", "scripts.quality_anchor",
+               "scripts.fusion_quality_anchor", "scripts.slic_node_crossval",
+               "scripts.train_rg_real"):
     assert pkg.__name__ + "." + needed in names, needed
 print("BAD", bad)
 """
