@@ -111,7 +111,11 @@ def cmd_extract_rg(args):
 def cmd_ingest_kg(args):
     from camouflage_multimodal_tpu_torch.kg.store import CamouflageKnowledgeStore
 
-    store = CamouflageKnowledgeStore()
+    # A rerun skips the files its log names, so it resumes the store it wrote
+    # (the JAX command starts empty and saves a store without them).
+    resume = (args.processed_log and os.path.exists(args.processed_log)
+              and os.path.exists(args.output))
+    store = CamouflageKnowledgeStore.load(args.output) if resume else CamouflageKnowledgeStore()
     ok, failed = store.ingest_directory(args.annotations,
                                         processed_log=args.processed_log)
     store.save(args.output)

@@ -86,6 +86,10 @@ def window_drift_bound(step: int, radius: int = 2) -> int:
 # ---------------------------------------------------------------------------
 
 _CHUNK = 4096        # pixels per (B, chunk, K) distance block of the plain version
+# On the CPU the block is held to about this many elements (4 MB of float32)
+# so that it stays in cache: at 256² a (9, 4096, 529) block ran several
+# times slower an image.
+_CPU_BLOCK = 1 << 20
 _BLOCK = 256         # pixels (threads) of one block of kernel B1
 TILE_WIDTH = 16      # B1's pixel tile is TILE_WIDTH x (_BLOCK // TILE_WIDTH); divides _BLOCK
 COMPACTNESS = 10.0   # skimage's SLIC parameters, as the reference calls it (the defaults)
@@ -99,19 +103,31 @@ def slic_assign_plain(pix: torch.Tensor, centers: torch.Tensor,
 
     pix (B, HW, 5) float32 (L, a, b, y, x); centers (B, K, 5) float32;
     prev (B, HW) int32. Returns (B, HW) int32 labels. Pixels are processed
-    in chunks so the distance block stays small."""
+    in chunks so the distance block stays small. On the CPU a chunk also
+    leaves out the centers whose row lies more than ``step`` from all of its
+    pixels' rows (the box test rejects them; the labels are the same)."""
     B, HW, _ = pix.shape
     K = centers.shape[1]
+    band = not pix.is_cuda
+    chunk = max(1, _CPU_BLOCK // (B * K)) if band else _CHUNK
     r = torch.tensor(ratio, dtype=torch.float32, device=pix.device)
-    c = centers[:, None, :, :]                         # (B, 1, K, 5)
-    fy = torch.floor(c[..., 3])
-    fx = torch.floor(c[..., 4])
-    ids = torch.arange(K, dtype=torch.int32, device=pix.device)
+    every = centers[:, None, :, :]                     # (B, 1, K, 5)
+    floors = torch.floor(every[..., 3:5])              # (B, 1, K, 2): fy, fx
+    ids_every = torch.arange(K, dtype=torch.int32, device=pix.device)
     big = torch.tensor(K, dtype=torch.int32, device=pix.device)
     out = torch.empty_like(prev)
-    for s in range(0, HW, _CHUNK):
-        p = pix[:, s:s + _CHUNK, None, :]               # (B, T, 1, 5)
+    for s in range(0, HW, chunk):
+        p = pix[:, s:s + chunk, None, :]                # (B, T, 1, 5)
         py, px = p[..., 3], p[..., 4]
+        c, f, ids = every, floors, ids_every
+        if band:
+            rows = floors[:, 0, :, 0]
+            near = ((rows >= py.min() - step) & (rows <= py.max() + step)).any(0)
+            if not near.any():         # no center in reach: every pixel keeps its label
+                out[:, s:s + chunk] = prev[:, s:s + chunk]
+                continue
+            c, f, ids = every[:, :, near], floors[:, :, near], ids_every[near]
+        fy, fx = f[..., 0], f[..., 1]
         ey = py - c[..., 3]
         ex = px - c[..., 4]
         d = r * (ey * ey + ex * ex)
@@ -122,8 +138,8 @@ def slic_assign_plain(pix: torch.Tensor, centers: torch.Tensor,
         d = torch.where(ok, d, torch.inf)
         best = d.amin(dim=-1, keepdim=True)
         lab = torch.where(d == best, ids, big).amin(dim=-1)
-        out[:, s:s + _CHUNK] = torch.where(best[..., 0] < torch.inf, lab,
-                                           prev[:, s:s + _CHUNK])
+        out[:, s:s + chunk] = torch.where(best[..., 0] < torch.inf, lab,
+                                          prev[:, s:s + chunk])
     return out
 
 

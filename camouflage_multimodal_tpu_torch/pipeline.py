@@ -50,8 +50,9 @@ class RegionGraphBatch(NamedTuple):
     node_mask: torch.Tensor     # (B, K) bool
     # (B,) float32 SLIC drift ratio: max center drift over the safe bound of
     # the JAX package's candidate window; < 1 means that window equals the
-    # all-K sweep this port runs (ops/slic.py).
-    window_drift: torch.Tensor
+    # all-K sweep this port runs (ops/slic.py). None for a batch that no
+    # SLIC of this package built (graphs read from files), as in JAX.
+    window_drift: Optional[torch.Tensor] = None
 
 
 def padded_nodes(n_segments: int, image_size: int, multiple: int = 128) -> int:
@@ -196,9 +197,14 @@ class RegionGraphPipeline:
         """The predictions of the images this process holds (under a
         ``row_group``, its block of their rows: ``heatmap`` and ``segments``
         are its rows, the rest the whole images')."""
-        batch = build_region_graphs(images, self.n_segments, self.max_nodes,
-                                    self.slic_iters, self.window_radius,
-                                    self.feature_norm, row_group)
+        return self.predict_graphs(build_region_graphs(
+            images, self.n_segments, self.max_nodes, self.slic_iters, self.window_radius,
+            self.feature_norm, row_group))
+
+    @torch.inference_mode()
+    def predict_graphs(self, batch: RegionGraphBatch) -> Dict[str, torch.Tensor]:
+        """The GNN's predictions and the painted heatmap of a built batch
+        (``window_drift`` passes through, None included)."""
         with record_function("cmt::gnn"):
             out = self.model(batch.features, batch.adjacency, batch.edge_weights,
                              batch.node_mask)

@@ -5,5 +5,7 @@
 and the quality and fidelity scripts ``scripts/fidelity_gate.py``,
 ``scripts/quality_anchor.py``, ``scripts/fusion_quality_anchor.py``,
 ``scripts/slic_node_crossval.py`` and ``scripts/train_rg_real.py``, which
-write under one output root (``--out``, default ``artifacts/torch_port/``);
-each runs as ``python -m camouflage_multimodal_tpu_torch.scripts.<name>``."""
+write under one output root (``--out``, default ``artifacts/torch_port/``),
+and the full-chain demo ``scripts/full_pipeline_demo.sh``
+(``full_pipeline_demo``, under ``artifacts/torch_port/demo``); each runs as
+``python -m camouflage_multimodal_tpu_torch.scripts.<name>``."""

@@ -26,8 +26,9 @@ the graft entry with its multichip dry run, and the JAX package's native
 host data path on the port (the threaded C++ decoder under the bench's end
 to end, and the C++ graph builder).
 The JAX system's quality and fidelity scripts run on the port too: the
-fidelity gate, the quality anchor, real-data RG training and the SLIC node
-cross-validation.
+fidelity gate with its fusion stages, the quality and fusion quality
+anchors, real-data RG training and the SLIC node cross-validation; and its
+full-chain demo, six CLI steps each on the files of the steps before it.
 
 Phases, each failing the run (nonzero exit, no result line) when it fails:
 
@@ -310,9 +311,20 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    per-threshold agreement and IoU, B1 exactly 10 launches (one batch);
    ``compare`` again with the port's side on the CPU: pixel and model-only
    agreement within 1e-2 of the card's, in the means and on each image,
-   and each image's heatmap MAE against the reference within 1e-5; (b) ``quality_anchor`` ``train``
+   and each image's heatmap MAE against the reference within 1e-5; then
+   the gate's ``fusion-train`` (the reference's fusion model, here the
+   stand-in for its ``fusion_model.py`` of ``tests/torch_port_cod10k.py``
+   written to a temporary file and given to
+   ``reference_impl.load_reference_fusion_module``, trained in plain torch
+   on the host: no launch) and ``fusion-compare`` (the port's
+   ``MultimodalPredictor`` on the card: per test image a batch of 1 and the
+   RG pipeline alone, B1 20 and B2 2, B3 none), its ``composed`` and
+   ``fusion_model_only`` fields within 1e-2 of the same stage on the CPU;
+   (b) ``quality_anchor`` ``train``
    (1 epoch, B1 10: one build batch) and ``eval`` (B1 20: two rows of one
-   batch), the table printed; (c) ``train_rg_real --images 16
+   batch), the table printed, then ``fusion_quality_anchor`` (2 epochs of
+   the reference's recipe on the stand-in in plain torch, on a seeded RG
+   store of the tree's names: no launch), its ``fusion`` rows printed; (c) ``train_rg_real --images 16
    --eval-images 8 --eval-stride 4 --epochs 1`` (B1 30: the build, the
    held-out set and its CAM-only subset), the report and seconds printed;
    (d) ``slic_node_crossval`` against a summary in the reference's format
@@ -322,7 +334,29 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    if more than 1 % differ by more than 2 nodes;
    (e) ``git status --porcelain`` of the checkout (where it is no git work
    tree, a listing of its files outside the ignored directories) the same
-   after the phase as before it. The fusion stages do not run on the card;
+   after the phase as before it;
+9j. the full-chain demo (``scripts/full_pipeline_demo.py``, the JAX
+   system's ``scripts/full_pipeline_demo.sh``) with ``--max-images 64
+   --kg-epochs 2 --fusion-epochs 2 --test-images 8`` on a seeded reference
+   tree in a temporary directory: 56 CAM and 8 NonCAM scenes of phase 9i's
+   kinds at 256² in COD10K's layout, phase 8's 520 annotations and 8
+   seeded test images (``--no-save-figures`` and a ``skipped`` line where
+   matplotlib is missing). Each of the six steps (``extract-rg``,
+   ``ingest-kg``, ``train-kg``, ``extract-kg``, ``train-fusion``,
+   ``test-multimodal``, through ``cli.main``) with its launch counts zeroed
+   just before it and read just after, its seconds and its files: B1 40 in
+   step 1 (four batches of 16), B1 10 and B2 2 in step 6 (one batch of 8),
+   nothing else (``train-fusion`` trains the shell script's config, whose
+   model takes the plain attention: ``use_pallas`` is off and dropout 0.3).
+   The KG and fusion losses finite, both checkpoints read by ``api``'s
+   loaders; step 1's store for the first 16 images equal to the bit to a
+   card rerun of them, whose segment maps are ≥ 99 % equal to the CPU's
+   ``extract-rg`` on the same files and whose embeddings are within 1e-2
+   of the CPU's (node embeddings where an image's maps are equal); the
+   CPU's ``extract-kg`` on step 3's checkpoint within 1e-5 of step 4's
+   embeddings; the CPU's ``test-multimodal`` on step 5's checkpoint and
+   step 4's embeddings: classes equal, scores within 1e-3 where the card's
+   and the CPU's segment maps agree; the checkout unchanged (as in 9i);
 10. timings after ``torch.cuda.synchronize()`` with CUDA events: each kernel
    (B1 at each pixel-tile shape), the host time to enqueue one call, its
    plain version, ``torch.nn.functional.multi_head_attention_forward``
@@ -3223,14 +3257,14 @@ QUALITY_MAE_BAR = 1e-5     # card vs CPU, each image's heatmap MAE against the r
 QUALITY_IGNORED = ("__pycache__", "_build", "_archive", ".git")
 
 
-def write_quality_tree(np, root):
+def write_quality_tree(np, root, n_cam=QUALITY_CAM, n_noncam=QUALITY_NONCAM):
     """Phase 9's scenes (``write_workflow_dataset``) and NonCAM scenes with
     empty GT under ``root``; returns the sorted image names."""
     from PIL import Image
 
-    _, names = write_workflow_dataset(np, root, QUALITY_CAM)
+    _, names = write_workflow_dataset(np, root, n_cam)
     empty = np.zeros((SIZE, SIZE), np.uint8)
-    for i, (img, _, _) in enumerate(BlobDataset(np, QUALITY_NONCAM, seed=43).items):
+    for i, (img, _, _) in enumerate(BlobDataset(np, n_noncam, seed=43).items):
         base = f"COD10K-NonCAM-{1 + i % 4}-{ENVIRONMENTS[i % 4]}-{1 + i // 4}-Background-{900 + i}"
         Image.fromarray(img).save(os.path.join(root, "images", base + ".jpg"), quality=95)
         for key in ("gt_object", "gt_instance", "gt_edge"):
@@ -3258,26 +3292,54 @@ def repo_state():
     return "file listing", sorted(files)
 
 
+def expect_quality(launches, want, what):
+    emit({"phase": "quality_launches", "of": what, "launches": launches, "expected": want})
+    if launches != want:
+        fail(f"{what} launched {launches}, expected {want}")
+
+
 def expect_b1(launches, want_b1, what):
-    emit({"phase": "quality_launches", "of": what, "launches": launches,
-          "expected": per_forward(1, want_b1, 0)})
-    if launches != per_forward(1, want_b1, 0):
-        fail(f"{what} launched {launches}, expected B1 {want_b1} alone")
+    expect_quality(launches, per_forward(1, want_b1, 0), what)
+
+
+def stand_in_fusion_model(path, source):
+    """Write ``source``, a stand-in for the reference's ``fusion_model.py``
+    (the checkout holds no reference), to ``path`` and point
+    ``reference_impl.load_reference_fusion_module`` at it; returns the
+    loader and its former defaults."""
+    from camouflage_multimodal_tpu_torch.scripts import fidelity_gate
+
+    with open(path, "w") as f:
+        f.write(source)
+    fidelity_gate.reference_side()
+    import reference_impl
+
+    loader = reference_impl.load_reference_fusion_module
+    saved = loader.__defaults__
+    loader.__defaults__ = (path,)
+    return loader, saved
 
 
 def phase_quality(torch, np, kernels, out_dir):
     """Phase 9i: the quality and fidelity scripts on a seeded tree (module
     docstring). Returns each step's launches."""
+    from camouflage_multimodal_tpu_torch.core.artifacts import save_rg_embeddings
     from camouflage_multimodal_tpu_torch.scripts import (
-        fidelity_gate, quality_anchor, slic_node_crossval, train_rg_real)
+        fidelity_gate, fusion_quality_anchor, quality_anchor, slic_node_crossval, train_rg_real)
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))   # the stand-in and a seeded RG store
+    from torch_port_cod10k import STAND_IN_FUSION_MODEL, rg_store
 
     t_phase = time.perf_counter()
     state = repo_state()
     root = os.path.join(out_dir, "quality", "tree")
     out = os.path.join(out_dir, "quality", "out")
     names = write_quality_tree(np, root)
-    saved = (fidelity_gate.REF_DATA, slic_node_crossval.REF_SUMMARY, slic_node_crossval.IMG_DIR)
+    saved = (fidelity_gate.REF_DATA, slic_node_crossval.REF_SUMMARY, slic_node_crossval.IMG_DIR,
+             fusion_quality_anchor.RG_EMBEDDINGS)
     fidelity_gate.REF_DATA = root
+    loader, loader_defaults = stand_in_fusion_model(
+        os.path.join(out_dir, "quality", "fusion_model.py"), STAND_IN_FUSION_MODEL)
     launches = {}
     try:
         # (a) The fidelity gate: graphs and train on the host, compare on the card.
@@ -3319,6 +3381,34 @@ def phase_quality(torch, np, kernels, out_dir):
                  f"{sorted(card['per_category'])}")
         launches["fidelity_gate"] = got
 
+        # The gate's fusion stages: the reference's model trained on the
+        # host, then the port's predictor on the card against it.
+        _, seconds["fusion_train"], got = counted(torch, kernels, lambda: fidelity_gate.main(
+            ["--stage", "fusion-train", "--out", out] + QUALITY_GATE))
+        expect_quality(got, per_forward(0, 0, 0), "fidelity_gate fusion-train (plain torch)")
+        launches["fidelity_gate_fusion_train"] = got
+        _, seconds["fusion_compare"], got = counted(torch, kernels, lambda: fidelity_gate.main(
+            ["--stage", "fusion-compare", "--out", out] + QUALITY_GATE))
+        with open(os.path.join(out, "fidelity_fusion_report.json")) as f:
+            card = json.load(f)
+        t0 = time.perf_counter()
+        cpu = fidelity_gate.stage_fusion_compare(test, out=out, device="cpu")
+        seconds["fusion_compare_cpu"] = time.perf_counter() - t0
+        parts = ("composed", "fusion_model_only")
+        diffs = {f"{part}.{k}": abs(card[part][k] - cpu[part][k])
+                 for part in parts for k in card[part]}
+        emit({"phase": "quality_gate_fusion", "seconds": seconds,
+              "test_images": card["n_test_images"], **{part: card[part] for part in parts},
+              "gate": card["gate"], "card_vs_cpu": diffs, "launches": got,
+              "note": "the reference's fusion_model.py is a stand-in "
+                      "(tests/torch_port_cod10k.py), trained in plain torch: no B3"})
+        expect_quality(got, per_forward(card["n_test_images"], 2 * SLIC_ITERS, 2),
+                       "fidelity_gate fusion-compare (per test image: a predictor batch of 1 "
+                       "and the RG pipeline alone)")
+        if set(card) != set(cpu) or max(diffs.values()) > QUALITY_BAR:
+            fail(f"fidelity_gate fusion-compare: card vs CPU {diffs} (bar {QUALITY_BAR})")
+        launches["fidelity_gate_fusion_compare"] = got
+
         # (b) The quality anchor on the gate's split.
         _, t_train, got = counted(torch, kernels, lambda: quality_anchor.main(
             ["--stage", "train", "--epochs", "1", "--out", out] + QUALITY_GATE))
@@ -3335,6 +3425,21 @@ def phase_quality(torch, np, kernels, out_dir):
                                   "jax_trained", "reference_composed_pipeline_iou"}:
             fail(f"quality_anchor: rows {sorted(table['rows'])}")
         launches["quality_anchor_eval"] = got
+
+        # The fusion quality anchor on a seeded RG store of the tree's names.
+        fusion_quality_anchor.RG_EMBEDDINGS = os.path.join(out_dir, "quality", "rg_store.npz")
+        save_rg_embeddings(fusion_quality_anchor.RG_EMBEDDINGS,
+                           rg_store(np.random.default_rng(4), names))
+        table, t_fqa, got = counted(torch, kernels, lambda: fusion_quality_anchor.main(
+            ["--epochs", "2", "--out", out]))
+        rows = table["fusion"]["rows"]
+        emit({"phase": "fusion_quality_anchor", "seconds": t_fqa, "rows": rows,
+              "launches": got})
+        expect_quality(got, per_forward(0, 0, 0), "fusion_quality_anchor (plain torch)")
+        if rows["reference_recipe_torch"] is None or None in (
+                rows["jax_trainer_default"], rows["jax_trainer_balanced"]):
+            fail(f"fusion_quality_anchor: rows {rows}")
+        launches["fusion_quality_anchor"] = got
 
         # (c) Real-data RG training on the tree.
         report, t_rg, got = counted(torch, kernels, lambda: train_rg_real.main(
@@ -3370,7 +3475,9 @@ def phase_quality(torch, np, kernels, out_dir):
                  f"{delta['n_images']} card counts differ from the CPU's by more than 2 nodes")
         launches["slic_node_crossval"] = got
     finally:
-        fidelity_gate.REF_DATA, slic_node_crossval.REF_SUMMARY, slic_node_crossval.IMG_DIR = saved
+        (fidelity_gate.REF_DATA, slic_node_crossval.REF_SUMMARY, slic_node_crossval.IMG_DIR,
+         fusion_quality_anchor.RG_EMBEDDINGS) = saved
+        loader.__defaults__ = loader_defaults
 
     # (e) Nothing written into the checkout.
     after = repo_state()
@@ -3380,6 +3487,219 @@ def phase_quality(torch, np, kernels, out_dir):
         fail(f"the quality scripts changed the checkout: {changed[:10]}")
     emit({"phase": "quality", "seconds": time.perf_counter() - t_phase})
     return launches
+
+
+DEMO_CAM, DEMO_NONCAM = 56, 8     # 64 scenes: --max-images 64 takes every one
+DEMO_TEST_IMAGES = 8
+DEMO_ARGS = ["--max-images", "64", "--kg-epochs", "2", "--fusion-epochs", "2",
+             "--test-images", str(DEMO_TEST_IMAGES)]
+DEMO_CUTS = {"images": "256 -> 64", "annotations": "6,000 -> 520", "kg_epochs": "20 -> 2",
+             "fusion_epochs": "12 -> 2", "data": "COD10K -> seeded scenes"}
+DEMO_SUBSET = 16           # step 1's first images held against the CPU
+DEMO_EMBEDDING_BAR = 1e-2  # card vs CPU, as the workflow phase holds graph embeddings
+DEMO_KG_BAR = 1e-5
+DEMO_FILES = {"extract-rg": ["rg_embeddings/all_rg_embeddings.npz"],
+              "ingest-kg": ["kg_store.pkl", "processed_files.txt"],
+              "train-kg": ["kg_gnn_model.ckpt"],
+              "extract-kg": ["kg_embeddings/all_embeddings.npz"],
+              "train-fusion": ["checkpoints/multimodal_best_fixed.ckpt",
+                               "checkpoints/training_history_fixed.json"],
+              "test-multimodal": ["results/batch_results.json"]}
+
+
+def write_demo_reference(np, root):
+    """The reference's layout under ``root``: COD10K (phase 9i's scenes),
+    phase 8's annotations over the 13 committed categories and seeded test
+    images."""
+    from PIL import Image
+
+    write_quality_tree(np, os.path.join(root, "data", "COD10K"), DEMO_CAM, DEMO_NONCAM)
+    annotations = os.path.join(root, "models", "knowledge_graph", "annotations")
+    os.makedirs(annotations)
+    with np.load(ARTIFACTS[2]) as z:
+        categories = list(z.files)
+    for name, obj in synthetic_annotations(np, categories, KG_PER_CATEGORY):
+        with open(os.path.join(annotations, name), "w") as f:
+            json.dump(obj, f)
+    tests = os.path.join(root, "test_images")
+    os.makedirs(tests)
+    for i, img in enumerate(synthetic_images(53, DEMO_TEST_IMAGES, SIZE)):
+        Image.fromarray(img).save(os.path.join(tests, f"test_{i:02d}.jpg"), quality=95)
+
+
+def quiet_cli(cli, argv):
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(argv)
+
+
+def phase_demo(torch, np, kernels, packages, out_dir):
+    """Phase 9j: the full-chain demo on a seeded reference tree (module
+    docstring). Returns each step's launches."""
+    import contextlib
+    import io
+    import re
+
+    from camouflage_multimodal_tpu_torch import api, cli
+    from camouflage_multimodal_tpu_torch.core.artifacts import (
+        load_kg_embeddings, load_rg_embeddings)
+    from camouflage_multimodal_tpu_torch.extract import load_image_u8
+    from camouflage_multimodal_tpu_torch.scripts import full_pipeline_demo
+
+    t_phase = time.perf_counter()
+    state = repo_state()
+    ref = os.path.join(out_dir, "demo", "reference")
+    out = os.path.join(out_dir, "demo", "out")
+    write_demo_reference(np, ref)
+    argv = ["--reference", ref, "--out", out] + DEMO_ARGS
+    if packages["matplotlib"] is None:
+        skipped("full_pipeline_demo step 6 figures: --no-save-figures", "matplotlib")
+        argv.append("--no-save-figures")
+
+    # Each step's launches zeroed just before it and read just after.
+    steps = {}
+    run_step = cli.main
+
+    def step(args):
+        _, seconds, launches = counted(torch, kernels, lambda: run_step(args))
+        steps[args[0]] = {"seconds": seconds, "launches": launches}
+
+    printed = io.StringIO()
+    cli.main = step
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            full_pipeline_demo.main(argv, device="cuda")
+    finally:
+        cli.main = run_step
+    demo_s = time.perf_counter() - t0
+    lines = printed.getvalue().splitlines()
+    expected = {"extract-rg": per_forward((DEMO_CAM + DEMO_NONCAM) // 16, SLIC_ITERS, 0),
+                "ingest-kg": per_forward(0, 0, 0), "train-kg": per_forward(0, 0, 0),
+                "extract-kg": per_forward(0, 0, 0), "train-fusion": per_forward(0, 0, 0),
+                "test-multimodal": per_forward(1, SLIC_ITERS, 2)}
+    for name, rec in steps.items():
+        rec["expected_launches"] = expected[name]
+        rec["files"] = {f: (os.path.getsize(os.path.join(out, f))
+                            if os.path.exists(os.path.join(out, f)) else None)
+                        for f in DEMO_FILES[name]}
+    banners = [ln for ln in lines if ln.startswith("===")]
+    emit({"phase": "demo_steps", "command": "full_pipeline_demo " + " ".join(DEMO_ARGS),
+          "cuts": DEMO_CUTS, "seconds": demo_s, "steps": steps, "banners": banners})
+    missing = [f for rec in steps.values() for f, size in rec["files"].items() if size is None]
+    if list(steps) != list(DEMO_FILES) or len(banners) != 7 or missing:
+        fail(f"the demo ran steps {list(steps)} with banners {banners}, missing {missing}")
+    for name, rec in steps.items():
+        if rec["launches"] != rec["expected_launches"]:
+            fail(f"demo step {name} launched {rec['launches']}, expected "
+                 f"{rec['expected_launches']}")
+
+    # The trained steps: finite losses, checkpoints the port's loaders read.
+    kg_losses = [float(v) for ln in lines
+                 for pair in re.findall(r"^Epoch \d+/\d+ \| Train: (\S+) \| Val: (\S+)$", ln)
+                 for v in pair]
+    with open(os.path.join(out, "checkpoints", "training_history_fixed.json")) as f:
+        history = json.load(f)
+    api.load_kg_model(os.path.join(out, "kg_gnn_model.ckpt"), device="cuda")
+    _, fusion_config = api.load_multimodal_model(
+        os.path.join(out, "checkpoints", "multimodal_best_fixed.ckpt"), device="cuda")
+    fusion_losses = history["train_loss"] + history["val_loss"]
+    emit({"phase": "demo_training", "kg_losses": kg_losses, "fusion_history": history,
+          "fusion_config_model": fusion_config["model"]})
+    if len(kg_losses) != 4 or len(fusion_losses) != 4 or not np.isfinite(
+            kg_losses + fusion_losses).all():
+        fail(f"demo training: KG losses {kg_losses}, fusion losses {fusion_losses}")
+
+    # Step 1 against the CPU on its first images.
+    images = os.path.join(ref, "data", "COD10K", "images")
+    names = sorted(os.listdir(images))[:DEMO_SUBSET]
+    subset = os.path.join(out_dir, "demo", "subset")
+    os.makedirs(subset)
+    for name in names:
+        os.symlink(os.path.join(images, name), os.path.join(subset, name))
+    sub, t_cpu = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        quiet_cli(cli, ["extract-rg", "--model", ARTIFACTS[1], "--image-dir", subset,
+                        "--output", os.path.join(out_dir, "demo", f"rg_{dev}"),
+                        "--batch-size", str(DEMO_SUBSET), "--save-individual", "--device", dev])
+        t_cpu[dev] = time.perf_counter() - t0
+        sub[dev] = load_rg_embeddings(os.path.join(out_dir, "demo", f"rg_{dev}",
+                                                   "all_rg_embeddings.npz"))
+    store = load_rg_embeddings(os.path.join(out, "rg_embeddings", "all_rg_embeddings.npz"))
+    rerun = max(float(np.abs(store[n][k] - sub["cuda"][n][k]).max())
+                for n in names for k in ("node_embeddings", "graph_embedding"))
+    seg_eq, node_err, graph_err = [], 0.0, 0.0
+    for name in names:
+        maps = []
+        for dev in ("cuda", "cpu"):
+            with np.load(os.path.join(out_dir, "demo", f"rg_{dev}",
+                                      name[:-4] + "_embedding.npz")) as z:
+                maps.append(z["segments"])
+        seg_eq.append(float((maps[0] == maps[1]).mean()))
+        graph_err = max(graph_err, float(np.abs(store[name]["graph_embedding"]
+                                                - sub["cpu"][name]["graph_embedding"]).max()))
+        if seg_eq[-1] == 1.0:
+            node_err = max(node_err, float(np.abs(store[name]["node_embeddings"]
+                                                  - sub["cpu"][name]["node_embeddings"]).max()))
+    emit({"phase": "demo_extract_vs_cpu", "images": DEMO_SUBSET, "seconds": t_cpu,
+          "store_vs_card_rerun_max_abs_diff": rerun, "segments_equal_min": min(seg_eq),
+          "images_with_equal_segments": seg_eq.count(1.0),
+          "node_embedding_max_abs_diff_where_equal": node_err,
+          "graph_embedding_max_abs_diff": graph_err})
+    if rerun != 0 or min(seg_eq) < 0.99 or max(node_err, graph_err) > DEMO_EMBEDDING_BAR:
+        fail(f"demo step 1 vs the CPU: rerun {rerun}, segments {min(seg_eq)}, node "
+             f"embeddings {node_err}, graph embeddings {graph_err}")
+
+    # Step 4 against the CPU on step 3's checkpoint.
+    kg_cpu = os.path.join(out_dir, "demo", "kg_cpu")
+    quiet_cli(cli, ["extract-kg", "--model", os.path.join(out, "kg_gnn_model.ckpt"), "--store",
+                    os.path.join(out, "kg_store.pkl"), "--output", kg_cpu, "--device", "cpu"])
+    kg_card = load_kg_embeddings(os.path.join(out, "kg_embeddings", "all_embeddings.npz"))
+    kg_plain = load_kg_embeddings(os.path.join(kg_cpu, "all_embeddings.npz"))
+    kg_err = max(float(np.abs(kg_card[k] - kg_plain[k]).max()) for k in kg_plain)
+    emit({"phase": "demo_extract_kg_vs_cpu", "categories": list(kg_card),
+          "max_abs_diff": kg_err})
+    if list(kg_card) != list(kg_plain) or len(kg_card) != 13 or kg_err > DEMO_KG_BAR:
+        fail(f"demo step 4 vs the CPU: categories {list(kg_card)}, max diff {kg_err}")
+
+    # Step 6 against the CPU on step 5's checkpoint and step 4's embeddings.
+    fusion_ckpt = os.path.join(out, "checkpoints", "multimodal_best_fixed.ckpt")
+    kg_npz = os.path.join(out, "kg_embeddings", "all_embeddings.npz")
+    tests = os.path.join(ref, "test_images")
+    results_cpu = os.path.join(out_dir, "demo", "results_cpu")
+    quiet_cli(cli, ["test-multimodal", "--checkpoint", fusion_ckpt, "--rg-model", ARTIFACTS[1],
+                    "--kg-embeddings", kg_npz, "--image-dir", tests, "--max-images",
+                    str(DEMO_TEST_IMAGES), "--output", results_cpu, "--device", "cpu"])
+    results = []
+    for d in (os.path.join(out, "results"), results_cpu):
+        with open(os.path.join(d, "batch_results.json")) as f:
+            results.append(json.load(f))
+    batch = np.stack([load_image_u8(os.path.join(tests, r["image"]), SIZE) for r in results[0]])
+    maps = [api.MultimodalPredictor(fusion_ckpt, ARTIFACTS[1], kg_npz, device=dev)
+            .predict_batch(batch)["segments"] for dev in ("cuda", "cpu")]
+    agree = [bool((a == b).all()) for a, b in zip(*maps)]
+    classes = [a["pred_label"] == b["pred_label"] for a, b in zip(*results)]
+    score_err = max([abs(a[k] - b[k]) for a, b, same in zip(*results, agree) if same
+                     for k in ("camo_prob", "not_camo_prob", "score")], default=None)
+    emit({"phase": "demo_test_vs_cpu", "images": len(results[0]), "classes_equal": classes,
+          "segments_agree": agree, "score_max_abs_diff_where_agree": score_err,
+          "camouflaged": sum(r["pred_label"] for r in results[0])})
+    if (len(results[0]) != DEMO_TEST_IMAGES or [r["image"] for r in results[0]] != [
+            r["image"] for r in results[1]] or not all(classes) or score_err is None
+            or score_err > BENCH_FUSION_BAR):
+        fail(f"demo step 6 vs the CPU: classes {classes}, segments agree {agree}, "
+             f"scores {score_err} (bar {BENCH_FUSION_BAR})")
+
+    after = repo_state()
+    emit({"phase": "demo_checkout", "method": state[0], "unchanged": after == state})
+    if after != state:
+        changed = sorted(set(map(str, after[1])) ^ set(map(str, state[1])))
+        fail(f"the demo changed the checkout: {changed[:10]}")
+    emit({"phase": "demo", "seconds": time.perf_counter() - t_phase})
+    return {name: rec["launches"] for name, rec in steps.items()}
 
 
 SCRIPTS_SERVE = dict(size=256, batch=8, n_requests=40)
@@ -3983,6 +4303,7 @@ def main() -> None:
         script_launches = phase_scripts(torch, np, kernels, api, out_dir)
         native_launches = phase_native(torch, np, kernels, out_dir)
         quality_launches = phase_quality(torch, np, kernels, out_dir)
+        demo_launches = phase_demo(torch, np, kernels, packages, out_dir)
     (b1_ms, b1_host, b1_plain, b1_bound, _), (b2, b2_bound) = phase_times(
         torch, slic_mod, attention_mod, b1, b2_cases, predictor, batches, trace)
     b3, b3_bound = phase_times_train(torch, kernels, attention_mod, b3_cases, trainer,
@@ -4014,6 +4335,7 @@ def main() -> None:
          "launches_scripts": scripts_launches(script_launches, "slic_assign"),
          "launches_native_e2e": {k: v["slic_assign"] for k, v in native_launches.items()},
          "launches_quality": {k: v["slic_assign"] for k, v in quality_launches.items()},
+         "launches_demo": {k: v["slic_assign"] for k, v in demo_launches.items()},
          "per_rg_training": "1 launch: one SLIC assignment of 16 images of 256^2 against K=529",
          "max_abs_err": b1["max_abs_err"],
          "ms": b1_ms, "host_ms": b1_host, "plain_ms": b1_plain, "bound_ms": b1_bound[0],
@@ -4041,6 +4363,7 @@ def main() -> None:
          "launches_scripts": scripts_launches(script_launches, "fused_mha"),
          "launches_native_e2e": {k: v["fused_mha"] for k, v in native_launches.items()},
          "launches_quality": {k: v["fused_mha"] for k, v in quality_launches.items()},
+         "launches_demo": {k: v["fused_mha"] for k, v in demo_launches.items()},
          **mp_rank_shapes(mp_kernels, "fused_mha"),
          "ms_training_shapes": sum(v["fused_mha_ms"] for v in b3.values()),
          "max_abs_err": b2_err,
@@ -4065,6 +4388,7 @@ def main() -> None:
          "launches_scripts": scripts_launches(script_launches, "fused_mha_bwd"),
          "launches_native_e2e": {k: v["fused_mha_bwd"] for k, v in native_launches.items()},
          "launches_quality": {k: v["fused_mha_bwd"] for k, v in quality_launches.items()},
+         "launches_demo": {k: v["fused_mha_bwd"] for k, v in demo_launches.items()},
          **mp_rank_shapes(mp_kernels, "fused_mha_bwd"),
          "ms": sum(v["ms"] for v in b3.values()),
          "host_ms": sum(v["host_ms"] for v in b3.values()),

@@ -164,7 +164,7 @@ for needed in ("train.train_fusion", "train.losses", "train.schedules", "train.s
                "scripts.serve_latency_ab", "scripts.profile_connectivity", "graft_entry",
                "native", "scripts.fidelity_gate", "scripts.quality_anchor",
                "scripts.fusion_quality_anchor", "scripts.slic_node_crossval",
-               "scripts.train_rg_real"):
+               "scripts.train_rg_real", "scripts.full_pipeline_demo"):
     assert pkg.__name__ + "." + needed in names, needed
 print("BAD", bad)
 """

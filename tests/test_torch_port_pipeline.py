@@ -193,3 +193,44 @@ def test_multimodal_predictor_committed_checkpoints(tmp_path):
     for key in ("rg2kg", "kg2rg"):
         assert got_a[key].shape == want_a[key].shape
         np.testing.assert_allclose(got_a[key], want_a[key], **PROB_TOL, err_msg=key)
+
+
+def test_batch_without_window_drift_from_committed_graphs():
+    """A ``RegionGraphBatch`` built from the five fields of the committed
+    reference graphs (``artifacts/fidelity/graphs_352``, which hold no
+    drift), as the JAX package accepts it: ``predict_graphs`` on the
+    committed RG weights gives the JAX model's painted heatmap at the GNN
+    bar and passes ``window_drift`` on as None."""
+    import os
+
+    from camouflage_multimodal_tpu_torch.api import load_rg_model
+
+    d = "artifacts/fidelity/graphs_352"
+    graphs = [np.load(os.path.join(d, f)) for f in sorted(os.listdir(d))[:2]]
+    K = max(g["features"].shape[0] for g in graphs)
+    seg = np.zeros((len(graphs), 352, 352), np.int32)
+    x = np.zeros((len(graphs), K, 15), np.float32)
+    adj = np.zeros((len(graphs), K, K), bool)
+    w = np.zeros((len(graphs), K, K), np.float32)
+    mask = np.zeros((len(graphs), K), bool)
+    for i, g in enumerate(graphs):
+        k = g["features"].shape[0]
+        seg[i] = np.searchsorted(g["id_map_keys"], g["segments"])   # label → node index
+        x[i, :k], adj[i, :k, :k], w[i, :k, :k], mask[i, :k] = (
+            g["features"], g["adjacency"], g["weights"], True)
+    fields = (seg, x, adj, w, mask)
+
+    jbatch = J_pipeline.RegionGraphBatch(*(jnp.asarray(a) for a in fields))
+    assert jbatch.window_drift is None
+    jmodel, jvars = J_api.load_rg_model(ARTIFACTS[1])
+    out = jmodel.apply(jvars, jbatch.features, jbatch.adjacency, jbatch.edge_weights,
+                       jbatch.node_mask)
+    probs = jnp.where(jbatch.node_mask, jax.nn.softmax(out["mask_logits"], axis=-1)[..., 1], 0.0)
+    want = np.asarray(J_pipeline.paint_segments(probs, jbatch.segments))
+
+    tbatch = T_pipeline.RegionGraphBatch(*(torch.from_numpy(a) for a in fields))
+    assert tbatch.window_drift is None
+    got = T_pipeline.RegionGraphPipeline(load_rg_model(ARTIFACTS[1], device="cpu"),
+                                         image_size=352).predict_graphs(tbatch)
+    assert got["window_drift"] is None
+    np.testing.assert_allclose(got["heatmap"].numpy(), want, **GNN_TOL)

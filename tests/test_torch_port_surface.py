@@ -201,8 +201,8 @@ def test_package_import_stays_light():
 
 
 def _entry_scripts():
-    return sorted([f"scripts/{p.name}" for p in (REPO / "scripts").glob("*.py")]
-                  + list(ENTRY_PORTS))
+    return sorted([f"scripts/{p.name}" for pattern in ("*.py", "*.sh")
+                   for p in (REPO / "scripts").glob(pattern)] + list(ENTRY_PORTS))
 
 
 def _port_of(script):
@@ -214,11 +214,12 @@ def _port_of(script):
 
 @pytest.mark.parametrize("script", _entry_scripts())
 def test_entry_script_has_a_port_or_needs_the_reference(script):
-    """Each JAX entry script (``scripts/*.py``, ``bench.py``,
-    ``__graft_entry__.py``) has a port module with ``main`` (or with
-    ``entry`` and ``dryrun_multichip``). The quality and fidelity scripts,
-    which read COD10K and the reference's recorded outputs, are ported too:
-    their runs on that data wait for it, not their code."""
+    """Each JAX entry script (``scripts/*.py``, ``scripts/*.sh``,
+    ``bench.py``, ``__graft_entry__.py``) has a port module with ``main``
+    (or with ``entry`` and ``dryrun_multichip``). The quality and fidelity
+    scripts and the full-chain demo, which read COD10K, the annotations and
+    the reference's recorded outputs, are ported too: their runs on that
+    data wait for it, not their code."""
     port = importlib.import_module(_port_of(script))
     if script == "__graft_entry__.py":
         assert callable(port.entry) and callable(port.dryrun_multichip)
