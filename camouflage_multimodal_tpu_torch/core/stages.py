@@ -19,6 +19,8 @@ from typing import Any, Callable, Dict, Iterable, Sequence
 import numpy as np
 import torch
 
+from camouflage_multimodal_tpu_torch.core.profiling import annotate
+
 
 def pad_batch(images: Sequence[np.ndarray], batch_size: int) -> np.ndarray:
     """Stack ``images`` and pad with zero images up to ``batch_size``, so
@@ -53,28 +55,46 @@ def run_overlapped(chunks: Sequence[Any], decode: Callable, upload_fn: Callable,
     ``record(downloaded)`` back on the caller's thread. Decode and upload
     run up to two chunks ahead; batch i's download is waited for only after
     batch i + 1 has been enqueued. ``compute`` may return None (nothing to
-    download for that chunk)."""
+    download for that chunk).
+
+    Spans (``core.profiling``): ``cmt::walk.decode`` around each
+    ``decode`` on its worker, and on the caller's thread
+    ``cmt::walk.wait_input`` around each wait for an uploaded chunk and
+    ``cmt::walk.wait_output`` around each wait for a download. Each stage
+    has one worker and takes its chunks in order, so the i-th span of each
+    name belongs to chunk i (of ``wait_output``, to the i-th chunk with a
+    download): that ordinal is the chunk's identifier."""
     n = len(chunks)
     if not n:
         return
+
+    def decode_span(chunk):
+        with annotate("cmt::walk.decode"):
+            return decode(chunk)
+
+    def wait_output(down):
+        with annotate("cmt::walk.wait_output"):
+            return down.result()
+
     with ThreadPoolExecutor(max_workers=1) as dec_ex, \
             ThreadPoolExecutor(max_workers=1) as up_ex, \
             ThreadPoolExecutor(max_workers=1) as down_ex:
         def staged(i):
-            decoded = dec_ex.submit(decode, chunks[i])
+            decoded = dec_ex.submit(decode_span, chunks[i])
             return up_ex.submit(lambda: upload_fn(decoded.result()))
 
         ahead = [staged(i) for i in range(min(2, n))]
         down = None
         for i in range(n):
-            uploaded = ahead.pop(0).result()
+            with annotate("cmt::walk.wait_input"):
+                uploaded = ahead.pop(0).result()
             if i + 2 < n:
                 ahead.append(staged(i + 2))
             out = compute(uploaded)
             if down is not None:
-                record(down.result())
+                record(wait_output(down))
                 down = None
             if out is not None:
                 down = down_ex.submit(download_fn, out)
         if down is not None:
-            record(down.result())
+            record(wait_output(down))

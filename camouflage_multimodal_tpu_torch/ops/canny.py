@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from camouflage_multimodal_tpu_torch.core.profiling import annotate
 from camouflage_multimodal_tpu_torch.ops.image import blur_radius, gaussian_blur, sobel_h, sobel_v
 from camouflage_multimodal_tpu_torch.ops.morphology import _shift, binary_dilation_full
 from camouflage_multimodal_tpu_torch.parallel.sharding import gather_dim, halo_rows
@@ -88,13 +89,16 @@ def _nonmax_suppression(gy, gx, mag, mask):
 def _hysteresis(low_mask: torch.Tensor, high_mask: torch.Tensor) -> torch.Tensor:
     """Low-threshold pixels 8-connected to a strong pixel: dilate within the
     low mask to a fixed point (steps past it are no-ops, so convergence is
-    tested every ``_STEPS_PER_CHECK`` steps to spare host syncs)."""
+    tested every ``_STEPS_PER_CHECK`` steps to spare host syncs; each test
+    is one ``cmt::sync.canny`` span)."""
     cur = high_mask & low_mask
     while True:
         prev = cur
         for _ in range(_STEPS_PER_CHECK):
             cur = binary_dilation_full(cur) & low_mask
-        if torch.equal(cur, prev):
+        with annotate("cmt::sync.canny"):
+            converged = torch.equal(cur, prev)
+        if converged:
             return cur
 
 

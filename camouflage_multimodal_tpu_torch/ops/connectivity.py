@@ -20,12 +20,14 @@ contract, bit for bit:
 4. relabel survivors sequentially in raster order, clamped to
    ``max_labels − 1``.
 
-The JAX ``lax.while_loop``s become Python loops with a convergence test. A
-round applied to an image that has already converged is a no-op, so the
-batch runs until its slowest image converges and each image gets exactly
-its own result; ``return_rounds`` counts each image's own rounds, as the
-JAX package's ``vmap`` of its loop does. Everything is int64, where the JAX
-package packs int32.
+The JAX ``lax.while_loop``s become Python loops with a convergence test, a
+host read each, inside a ``cmt::sync.components`` span (every
+``_SWEEPS_PER_CHECK`` sweeps of step 1) or a ``cmt::sync.merge`` span
+(every merge round of step 3). A round applied to an image that has
+already converged is a no-op, so the batch runs until its slowest image
+converges and each image gets exactly its own result; ``return_rounds``
+counts each image's own rounds, as the JAX package's ``vmap`` of its loop
+does. Everything is int64, where the JAX package packs int32.
 
 The run-structured path works on row-runs of equal labels (each lies in one
 component, and every component's root is a run start), so its merge rounds
@@ -53,6 +55,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from camouflage_multimodal_tpu_torch.core.profiling import annotate
 from camouflage_multimodal_tpu_torch.parallel.sharding import gather_dim
 
 _MAX_MERGE_ROUNDS = 64
@@ -102,7 +105,9 @@ def connected_components(labels: torch.Tensor) -> torch.Tensor:
         for _ in range(_SWEEPS_PER_CHECK):   # sweeps past the fixed point are no-ops
             comp = _seg_min_scan(comp, s_cols, 2, HW)
             comp = _seg_min_scan(comp, s_rows, 1, HW)
-        if torch.equal(comp, prev):
+        with annotate("cmt::sync.components"):
+            converged = torch.equal(comp, prev)
+        if converged:
             return comp
 
 
@@ -220,7 +225,9 @@ def enforce_label_connectivity(labels: torch.Tensor, n_segments: int,
     for _ in range(_MAX_MERGE_ROUNDS - 1):
         small_c = (size > 0) & (size < min_size)
         pending = small_c.any(dim=1)
-        if not bool(pending.any()):
+        with annotate("cmt::sync.merge"):
+            merging = bool(pending.any())
+        if not merging:
             break
         rounds += pending
         packed_c = cur + torch.where(torch.gather(small_c, 1, cur), _SMALL_BIT, 0)
@@ -357,7 +364,9 @@ def enforce_label_connectivity_runs(labels: torch.Tensor, n_segments: int,
     for _ in range(_MAX_MERGE_ROUNDS - 1):
         small_c = (size > 0) & (size < min_size)
         pending = small_c.any(dim=1)
-        if not bool(pending.any()):
+        with annotate("cmt::sync.merge"):
+            merging = bool(pending.any())
+        if not merging:
             break
         rounds += pending
         packed_c = (cur << 1) | torch.gather(small_c, 1, cur).long()

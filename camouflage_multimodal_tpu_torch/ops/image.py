@@ -8,11 +8,18 @@ pads them: "reflect" is numpy's ``symmetric`` (edge value repeated), which
 ``torch.nn.functional.pad`` does not offer, "mirror" numpy's ``reflect``,
 "nearest" the edge value and "constant" zeros; :func:`_pad_axis` builds
 each from slices.
+
+A constant built from a host list on the card (``torch.tensor(...,
+device=)``) is a copy from pageable memory, which waits for the card's
+queue to drain: each such copy on the graph build's path lies in a
+``cmt::sync.<site>`` span (``core.profiling``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from camouflage_multimodal_tpu_torch.core.profiling import annotate
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -49,7 +56,8 @@ def imagenet_denormalize(img: torch.Tensor) -> torch.Tensor:
 
 def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 3) → (..., H, W) with the reference's weights."""
-    w = torch.tensor(GRAY_WEIGHTS, dtype=img.dtype, device=img.device)
+    with annotate("cmt::sync.gray"):
+        w = torch.tensor(GRAY_WEIGHTS, dtype=img.dtype, device=img.device)
     return _dot3(img, w)
 
 
@@ -133,8 +141,9 @@ def _sobel(img: torch.Tensor, dim: int, mode: str) -> torch.Tensor:
     """scipy.ndimage.sobel: [-1, 0, 1] along ``dim``, then [1, 2, 1] along
     the other of the last two axes, each padded in ``mode``."""
     other = -1 if dim == -2 else -2
-    deriv = torch.tensor([-1.0, 0.0, 1.0], dtype=img.dtype, device=img.device)
-    smooth = torch.tensor([1.0, 2.0, 1.0], dtype=img.dtype, device=img.device)
+    with annotate("cmt::sync.sobel"):
+        deriv = torch.tensor([-1.0, 0.0, 1.0], dtype=img.dtype, device=img.device)
+        smooth = torch.tensor([1.0, 2.0, 1.0], dtype=img.dtype, device=img.device)
     x = _correlate_valid(_pad_axis(img, 1, dim, mode), deriv, dim)
     return _correlate_valid(_pad_axis(x, 1, other, mode), smooth, other)
 
@@ -157,9 +166,10 @@ def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
     srgb = torch.clamp(rgb, 0.0, 1.0)
     linear = torch.where(srgb > 0.04045, ((srgb + 0.055) / 1.055) ** 2.4,
                          srgb / 12.92)
-    m = torch.tensor(_XYZ_FROM_RGB, dtype=rgb.dtype, device=rgb.device)
+    with annotate("cmt::sync.lab"):
+        m = torch.tensor(_XYZ_FROM_RGB, dtype=rgb.dtype, device=rgb.device)
+        white = torch.tensor(_D65_WHITE, dtype=rgb.dtype, device=rgb.device)
     xyz = torch.stack([_dot3(linear, m[i]) for i in range(3)], dim=-1)
-    white = torch.tensor(_D65_WHITE, dtype=rgb.dtype, device=rgb.device)
     t = xyz / white
     delta = 6.0 / 29.0
     f = torch.where(t > delta ** 3, torch.pow(t, 1.0 / 3.0),

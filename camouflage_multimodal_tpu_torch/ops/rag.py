@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from camouflage_multimodal_tpu_torch.core.profiling import annotate
 from camouflage_multimodal_tpu_torch.parallel.sharding import all_reduce_, halo_rows
 
 
@@ -50,7 +51,8 @@ def region_adjacency(segments: torch.Tensor, num_segments: int,
     for n in _forward_neighbor_maps(ext):
         n = n[:, top:top + H]
         n = torch.where((n >= 0) & (n < K), n, K)
-        adj[(base + s * K1 + n).reshape(-1)] = True
+        with annotate("cmt::sync.adjacency"):    # True is copied from pageable host memory
+            adj[(base + s * K1 + n).reshape(-1)] = True
     if row_group is not None:
         adj = all_reduce_(adj.view(torch.uint8), row_group, dist.ReduceOp.MAX).view(torch.bool)
     adj = adj.reshape(B, K1, K1)[:, :K, :K]

@@ -25,8 +25,8 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
+from camouflage_multimodal_tpu_torch.core.profiling import annotate
 from camouflage_multimodal_tpu_torch.models.fusion import MultimodalCamouflageDetector
 from camouflage_multimodal_tpu_torch.models.region_graph import RegionGraphGNN
 from camouflage_multimodal_tpu_torch.ops.canny import canny
@@ -79,20 +79,23 @@ def build_region_graphs(images: torch.Tensor, n_segments: int = 500,
     if max_nodes is None:
         max_nodes = padded_nodes(n_segments, spatial_rows(images.shape[1], row_group)[1])
     # cmt:: ranges name the stages in a torch.profiler trace (chip_smoke.py
-    # --profile); without a profiler each costs about a microsecond.
-    with record_function("cmt::slic"):
+    # --profile, the benchmark's --trace 1). A record_function call costs
+    # 9-11 us on the host of an H100 80GB HBM3 machine (PyTorch 2.11, Python
+    # 3.12; a loop of empty ranges), so with no profiler running annotate
+    # opens none and costs one flag test.
+    with annotate("cmt::slic"):
         raw, drift = slic(images, n_segments=n_segments, num_iters=slic_iters,
                           backend="exact", enforce_connectivity=False, return_drift=True,
                           window_radius=window_radius, row_group=row_group)
-    with record_function("cmt::connectivity"):
+    with annotate("cmt::connectivity"):
         seg = enforce_label_connectivity_batched(raw, n_segments, max_labels=max_nodes,
                                                  row_group=row_group)
-    with record_function("cmt::canny"):
+    with annotate("cmt::canny"):
         edges = canny(rgb_to_gray(images), sigma=2.0, row_group=row_group)
-    with record_function("cmt::region_features"):
+    with annotate("cmt::region_features"):
         reg = region_features(images, seg, edges, max_nodes, norm_size=feature_norm,
                               row_group=row_group)
-    with record_function("cmt::rag"):
+    with annotate("cmt::rag"):
         adj = region_adjacency(seg, max_nodes, row_group=row_group)
         w = rag_edge_weights(reg["features"], adj)
     return RegionGraphBatch(seg, reg["features"], adj, w, reg["node_mask"], drift)
@@ -115,7 +118,7 @@ def build_region_graphs_with_labels(
     def to01(x):
         return x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
 
-    with record_function("cmt::labels"):
+    with annotate("cmt::labels"):
         maps = torch.stack([to01(masks), to01(instances), to01(edges_gt)], dim=-1)
         means = region_label_means(maps, batch.segments, max_nodes)
         labels = {
@@ -205,7 +208,7 @@ class RegionGraphPipeline:
     def predict_graphs(self, batch: RegionGraphBatch) -> Dict[str, torch.Tensor]:
         """The GNN's predictions and the painted heatmap of a built batch
         (``window_drift`` passes through, None included)."""
-        with record_function("cmt::gnn"):
+        with annotate("cmt::gnn"):
             out = self.model(batch.features, batch.adjacency, batch.edge_weights,
                              batch.node_mask)
             probs = torch.softmax(out["mask_logits"], dim=-1)[..., 1]
@@ -247,7 +250,7 @@ class MultimodalPipeline:
         rg_out = self.rg.forward(images, row_group)
         B = images.shape[0]
         kg = kg_tensor[None].expand(B, *kg_tensor.shape)
-        with record_function("cmt::fusion"):
+        with annotate("cmt::fusion"):
             out = self.fusion_model(rg_out["node_embeddings"], kg,
                                     rg_mask=rg_out["node_mask"], return_attention=True)
         if out["attention"] is None:

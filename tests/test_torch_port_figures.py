@@ -1,19 +1,17 @@
 """The port's host-side modules against the JAX package's on the CPU: the
 figure panels (``viz.py``) and report plots (``utils/visualization.py``)
 pixel for pixel, the figures ``api.py`` writes under the JAX file names,
-the config loader, and ``StageTimer`` / ``trace`` / ``annotate``.
+and the config loader.
 
 Bars: decoded PNGs equal; configs equal; the written file names equal; the
 heatmap PNGs at the slice's heatmap bar (tests/test_torch_port_pipeline.py).
 """
 
-import json
 import os
 import sys
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 import jax
@@ -23,13 +21,11 @@ jax.config.update("jax_platforms", "cpu")
 from camouflage_multimodal_tpu import api as J_api  # noqa: E402
 from camouflage_multimodal_tpu import viz as J_viz  # noqa: E402
 from camouflage_multimodal_tpu.core import config as J_config  # noqa: E402
-from camouflage_multimodal_tpu.core import profiling as J_profiling  # noqa: E402
 from camouflage_multimodal_tpu.utils import visualization as J_vis  # noqa: E402
 from camouflage_multimodal_tpu_torch import api as T_api  # noqa: E402
 from camouflage_multimodal_tpu_torch import utils as T_utils  # noqa: E402
 from camouflage_multimodal_tpu_torch import viz as T_viz  # noqa: E402
 from camouflage_multimodal_tpu_torch.core import config as T_config  # noqa: E402
-from camouflage_multimodal_tpu_torch.core import profiling as T_profiling  # noqa: E402
 from test_torch_port_pipeline import (  # noqa: E402, F401
     ARTIFACTS, few_threads, synthetic_images)
 
@@ -160,38 +156,6 @@ def test_load_config_names_missing_pyyaml(monkeypatch):
     assert T_config.load_config() == J_config.default_config()
     with pytest.raises(ImportError, match="PyYAML"):
         T_config.load_config(CONFIG)
-
-
-def test_stage_timer_summary_has_jax_keys(tmp_path):
-    timers = [J_profiling.StageTimer(), T_profiling.StageTimer()]
-    for t in timers:
-        for _ in range(2):
-            with t.stage("decode"):
-                pass
-        with t.stage("compute"):
-            pass
-    want, got = (t.summary() for t in timers)
-    assert set(got) == set(want) == {"decode", "compute"}
-    for stage in want:
-        assert set(got[stage]) == set(want[stage])
-        assert got[stage]["count"] == want[stage]["count"]
-    timers[1].save(str(tmp_path / "sub" / "timing.json"))
-    with open(tmp_path / "sub" / "timing.json") as f:
-        assert json.load(f)["decode"]["count"] == 2
-
-
-def test_trace_writes_annotated_chrome_trace(tmp_path):
-    with T_profiling.trace(None):
-        pass
-    assert not os.listdir(tmp_path)
-    with T_profiling.trace(str(tmp_path / "trace")):
-        with T_profiling.annotate("port_stage_marker"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    files = os.listdir(tmp_path / "trace")
-    assert files == ["trace.json"]
-    with open(tmp_path / "trace" / "trace.json") as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "port_stage_marker" for e in events)
 
 
 def test_port_imports_without_matplotlib_or_pyyaml():

@@ -29,11 +29,15 @@ PACKAGES = ("", "core", "kg", "models", "train", "utils")
 
 # JAX names whose port counterpart has another name, in PyTorch's idiom:
 # "module.name" → the port's "module.name", or None where the JAX object is
-# state that ``nn.Module`` and ``torch.optim`` hold in the port. Parameters
+# state that ``nn.Module`` and ``torch.optim`` hold in the port, or a
+# recorder whose part ``torch.profiler`` plays (the port's spans are
+# ``core.profiling.annotate`` ranges, read from its traces). Parameters
 # follow the same idiom (``fit(use_scan=)`` is ``fit(device_resident=)``,
 # ``variables=`` / ``state=`` are a module's own state).
 PORT_RENAMES = {
     "train.state.TrainState": None,
+    "core.profiling.StageTimer": None,
+    "core.profiling.trace": None,
     "train.state.make_adamw_tx": "train.state.make_adamw",
     "train.state.make_adam_l2_tx": "train.state.make_adam_l2",
     "ops.pallas_slic.pallas_slic_assign": "ops.slic.slic_assign",
