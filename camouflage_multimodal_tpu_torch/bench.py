@@ -17,8 +17,8 @@ the per-pixel heatmap), measured three ways:
   event), the pipeline on the caller's thread. Best and median of
   ``BENCH_E2E_PASSES`` passes, and the best pass with draft JPEG decode.
 
-The pipeline synchronises with the host inside a batch (Canny's hysteresis
-and connectivity's fixed points test for convergence on the host), so on
+The pipeline synchronises with the host inside a batch (connectivity's
+fixed points test for convergence on the host), so on
 the port "dispatch" returns late and the two-deep loop does not overlap as
 it does under XLA: the loop is kept as the JAX bench runs it, and what it
 measures is written down beside it (PERF.md).

@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("slic_assign", "fused_mha", "fused_mha_bwd")
+KERNELS = ("slic_assign", "fused_mha", "fused_mha_bwd", "canny_hysteresis")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -51,6 +51,8 @@ _SIGNATURES = {
     # d_bq, d_wk, d_bk, d_wv, d_bv, d_wo, d_bo; batch, nq, nk, e_in, e,
     # e_out, heads, total_heads, key_chunks, scale, stream
     "fused_mha_bwd": [_P] * 16 + [_L] + [_P] * 11 + [_I] * 9 + [_F, _P],
+    # low, high, out, rounds, scratch (or null), batch, height, width, stream
+    "canny_hysteresis": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 # Further entry points of a library, for tests and measurements.

@@ -8,8 +8,10 @@ range whose name starts with ``cmt::``. The spans:
   ``cmt::region_features``, ``cmt::rag``, ``cmt::labels``, ``cmt::gnn``,
   ``cmt::fusion``;
 - each host synchronisation of the graph build, around the blocking call
-  alone: the fixed points' tests, ``cmt::sync.canny`` (Canny's hysteresis,
-  ``ops/canny.py``), ``cmt::sync.components`` and ``cmt::sync.merge``
+  alone: the fixed points' tests, ``cmt::sync.canny`` (the plain version of
+  Canny's hysteresis, ``ops/canny.py``, which CPU tensors take: on the card
+  one kernel runs that fixed point with no host synchronisation, so the
+  span never opens there), ``cmt::sync.components`` and ``cmt::sync.merge``
   (connectivity's components and merge rounds, ``ops/connectivity.py``),
   whose counts are the fixed points' round counts; and the constants
   copied from pageable host memory, which wait for the card's queue as a

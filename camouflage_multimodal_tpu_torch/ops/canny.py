@@ -2,9 +2,15 @@
 
 Port of ``camouflage_multimodal_tpu/ops/canny.py``: border-compensated
 Gaussian smoothing, Sobel gradients, bilinear non-maximum suppression and
-double-threshold hysteresis as a masked 8-connected dilation run to a fixed
-point. The gradient magnitude uses JAX's ``hypot`` formula
-(``max·sqrt(1 + (min/max)²)``), so it rounds like the reference.
+double-threshold hysteresis run to a fixed point. The gradient magnitude
+uses JAX's ``hypot`` formula (``max·sqrt(1 + (min/max)²)``), so it rounds
+like the reference.
+
+The hysteresis (:func:`canny_hysteresis`) is one CUDA kernel on the card,
+``csrc/canny_hysteresis.cu``: the whole fixed point in one launch, with no
+host synchronisation, as the JAX package's ``lax.while_loop`` runs inside
+one program. CPU tensors take the plain version, :func:`_hysteresis`, a
+masked 8-connected dilation tested for convergence on the host.
 
 Under spatial sharding (``row_group``: each rank holds a block of rows) the
 stencils run on the rank's rows extended by ``radius + 2`` rows of each
@@ -24,12 +30,17 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from camouflage_multimodal_tpu_torch.core import kernels
 from camouflage_multimodal_tpu_torch.core.profiling import annotate
 from camouflage_multimodal_tpu_torch.ops.image import blur_radius, gaussian_blur, sobel_h, sobel_v
 from camouflage_multimodal_tpu_torch.ops.morphology import _shift, binary_dilation_full
 from camouflage_multimodal_tpu_torch.parallel.sharding import gather_dim, halo_rows
 
 _STEPS_PER_CHECK = 8   # hysteresis dilations between convergence tests
+# Shared memory a block of the H100 may take (227 KB): an image whose two
+# packed masks (8 bytes a 32-pixel word of a row) need more runs the
+# kernel's fixed point over a scratch buffer in device memory.
+_SHARED_BYTES = 232448
 
 
 def _preprocess(image: torch.Tensor, sigma: float):
@@ -90,7 +101,8 @@ def _hysteresis(low_mask: torch.Tensor, high_mask: torch.Tensor) -> torch.Tensor
     """Low-threshold pixels 8-connected to a strong pixel: dilate within the
     low mask to a fixed point (steps past it are no-ops, so convergence is
     tested every ``_STEPS_PER_CHECK`` steps to spare host syncs; each test
-    is one ``cmt::sync.canny`` span)."""
+    is one ``cmt::sync.canny`` span). The plain version of
+    :func:`canny_hysteresis`, which takes it for CPU tensors."""
     cur = high_mask & low_mask
     while True:
         prev = cur
@@ -102,6 +114,52 @@ def _hysteresis(low_mask: torch.Tensor, high_mask: torch.Tensor) -> torch.Tensor
             return cur
 
 
+def canny_hysteresis(low_mask: torch.Tensor, high_mask: torch.Tensor,
+                     return_rounds: bool = False):
+    """Canny's hysteresis on bool (..., H, W) masks: the pixels of
+    ``low_mask`` 8-connected, through pixels of ``low_mask``, to a pixel of
+    ``high_mask & low_mask``.
+
+    CPU tensors take :func:`_hysteresis`; CUDA tensors launch the kernel
+    (one launch, no host synchronisation); any other device raises. With
+    ``return_rounds`` (CUDA only) it also returns the int32 rounds each
+    image took, shaped like the leading dimensions: reading them waits for
+    the card, so the main path does not ask."""
+    kind = low_mask.device.type
+    if kind == "cpu":
+        if return_rounds:
+            raise ValueError("canny_hysteresis: rounds are counted by the kernel (CUDA tensors)")
+        return _hysteresis(low_mask, high_mask)
+    if kind != "cuda":
+        raise ValueError(f"canny_hysteresis: unsupported device {low_mask.device}")
+    if low_mask.dtype != torch.bool or high_mask.dtype != torch.bool:
+        raise TypeError("canny_hysteresis: the masks must be bool")
+    if low_mask.dim() < 2 or low_mask.shape != high_mask.shape:
+        raise ValueError(f"canny_hysteresis: bad shapes low {tuple(low_mask.shape)}, "
+                         f"high {tuple(high_mask.shape)}")
+    if high_mask.device != low_mask.device:
+        raise ValueError(f"canny_hysteresis: high must be on {low_mask.device}")
+    if not (low_mask.is_contiguous() and high_mask.is_contiguous()):
+        raise ValueError("canny_hysteresis: the masks must be contiguous")
+    if not low_mask.numel():
+        raise ValueError("canny_hysteresis: the masks hold no pixel")
+    H, W = low_mask.shape[-2:]
+    B = low_mask.numel() // (H * W)
+    words = H * -(-W // 32)
+    scratch = (None if 8 * words <= _SHARED_BYTES else
+               torch.empty(2 * B * words, dtype=torch.int32, device=low_mask.device))
+    out = torch.empty_like(low_mask)
+    rounds = torch.empty(low_mask.shape[:-2], dtype=torch.int32, device=low_mask.device)
+    lib = kernels.library("canny_hysteresis")
+    rc = lib.canny_hysteresis(low_mask.data_ptr(), high_mask.data_ptr(), out.data_ptr(),
+                              rounds.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                              B, H, W, kernels.stream_handle(low_mask))
+    if rc:
+        kernels.check(lib, rc, "canny_hysteresis")
+    kernels.LAUNCHES["canny_hysteresis"] += 1
+    return (out, rounds) if return_rounds else out
+
+
 def canny(gray: torch.Tensor, sigma: float = 2.0, low_threshold: float = 0.1,
           high_threshold: float = 0.2, row_group=None) -> torch.Tensor:
     """Canny edges of float (..., H, W) images in [0, 1] → bool maps. The
@@ -110,12 +168,12 @@ def canny(gray: torch.Tensor, sigma: float = 2.0, low_threshold: float = 0.1,
     result (module docstring)."""
     thresholds = (low_threshold, high_threshold)
     if row_group is None:
-        return _hysteresis(*_threshold_masks(gray, sigma, *thresholds))
+        return canny_hysteresis(*_threshold_masks(gray, sigma, *thresholds))
     rows = gray.shape[-2]
     ext, top = halo_rows(gray, blur_radius(sigma) + 2, row_group, dim=-2)
     low, high = (m.narrow(-2, top, rows) for m in _threshold_masks(ext, sigma, *thresholds))
     whole = gather_dim(torch.stack([low, high]), low.ndim - 1, row_group)
-    return _hysteresis(whole[0], whole[1]).narrow(-2, rows * dist.get_rank(row_group), rows)
+    return canny_hysteresis(whole[0], whole[1]).narrow(-2, rows * dist.get_rank(row_group), rows)
 
 
 def _threshold_masks(gray: torch.Tensor, sigma: float, low_threshold: float = 0.1,

@@ -2,8 +2,8 @@
 
 Port of ``camouflage_multimodal_tpu/ops/morphology.py``: the zero-filled
 shift and the iterated 4-connected (scipy's default cross) and 8-connected
-(3×3) dilations, over the last two axes. Canny's hysteresis runs one
-8-connected dilation a step.
+(3×3) dilations, over the last two axes. The plain version of Canny's
+hysteresis (CPU tensors) runs one 8-connected dilation a step.
 """
 
 from __future__ import annotations

@@ -90,6 +90,13 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    bit-equal; one wrapper launch per call, and the number of CUDA kernels
    that call launched; the plain statement of the kernel's algorithm
    (``multihead_attention_backward_tiled``) within the same bar;
+4b. kernel ``canny_hysteresis`` (Canny's hysteresis fixed point in one
+   launch) against its plain version on 16 of the benchmark's scenes
+   (``benchmark/scenes.py``, made on the card) at 352² and at 256², Canny's
+   masks as the graph build makes them: equal to the bit, one launch a
+   call, at least one round an image; the rounds each image took, the
+   kernel's device time, its time as called and host enqueue, its byte
+   bound and the plain version's time;
 5. the inference path: ``MultimodalPredictor`` built from the three committed
    artifacts answers ``--batches`` batches of 4 seeded uint8 images at
    256². Launch counters are zeroed just before and read just after: B1
@@ -518,6 +525,14 @@ def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = n_ops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def with_canny(want: dict, iters: int = SLIC_ITERS) -> dict:
+    """``want`` with the launches of Canny's hysteresis kernel, where it does
+    not name them: one a graph build on the card, and each build launches
+    B1 ``iters`` times."""
+    return {**want, "canny_hysteresis": want.get("canny_hysteresis",
+                                                 want.get("slic_assign", 0) // iters)}
 
 
 # ---------------------------------------------------------------------------
@@ -1023,6 +1038,64 @@ def phase_fused_mha_bwd(torch, kernels, attention_mod, fusion_model):
     return cases, worst
 
 
+# Canny's hysteresis kernel (phase 4b): batches of the benchmark's scenes at
+# the two configurations' sizes.
+CANNY_SIZES = (352, 256)
+CANNY_BATCH = 16
+
+
+def benchmark_scenes(torch, n: int, size: int, seed: int):
+    """``n`` of the benchmark's seeded scenes (``benchmark/scenes.py``, made
+    on the card) at ``size``², float in [0, 1]."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "benchmark_scenes", os.path.join(REPO, "benchmark", "scenes.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return mod.scenes(g, n, size, size).float() / 255.0
+
+
+def phase_canny_hysteresis(torch, kernels):
+    """Phase 4b: the hysteresis kernel against its plain version on the
+    graph build's Canny masks of the benchmark's scenes; returns a record a
+    size."""
+    canny_mod = importlib.import_module("camouflage_multimodal_tpu_torch.ops.canny")
+    from camouflage_multimodal_tpu_torch.ops.image import rgb_to_gray
+
+    rows = []
+    for size in CANNY_SIZES:
+        low, high = canny_mod._threshold_masks(
+            rgb_to_gray(benchmark_scenes(torch, CANNY_BATCH, size, 20201 + size)), 2.0)
+        before = (kernels.LAUNCHES["canny_hysteresis"], kernels.device_launches("canny_hysteresis"))
+        got, rounds = canny_mod.canny_hysteresis(low, high, return_rounds=True)
+        torch.cuda.synchronize()
+        launched = [kernels.LAUNCHES["canny_hysteresis"] - before[0],
+                    kernels.device_launches("canny_hysteresis") - before[1]]
+        want = canny_mod._hysteresis(low, high)
+        differ = int((got != want).sum())
+
+        def call():
+            return canny_mod.canny_hysteresis(low, high)
+
+        bound = bound_ms(3 * low.numel(), 0)     # two masks read, the result written
+        rec = {"phase": "canny_hysteresis", "batch": CANNY_BATCH, "size": size,
+               "pixels_differ": differ, "low_pixels": int(low.sum()),
+               "strong_pixels": int((low & high).sum()), "edge_pixels": int(want.sum()),
+               "launches_per_call": launched, "rounds": rounds.tolist(),
+               "ms": cuda_ms(call), "host_ms": host_ms(call),
+               "device_ms": device_ms_per_launch(torch, call, "canny_hysteresis_kernel"),
+               "plain_ms": cuda_ms(lambda: canny_mod._hysteresis(low, high), reps=2, rounds=3),
+               "bound_ms": bound[0], "bound_by": bound[1]}
+        emit(rec)
+        if differ or launched != [1, 1] or int(rounds.min()) < 1:
+            fail(f"canny_hysteresis at {CANNY_BATCH} x {size}^2: {differ} pixels differ from "
+                 f"the plain version, launches {launched}, rounds {rec['rounds']}")
+        rows.append(rec)
+    return rows
+
+
 def train_records(np, seed: int = 11):
     """Seeded records shaped like extracted ones: 380–560 nodes of 128 dims
     (one of 600, which the 576-node bucket truncates), the committed KG
@@ -1070,9 +1143,9 @@ def phase_train_slice(torch, np, kernels, api, train_mod, out_dir):
         train_mod, records, "cuda", 0.0, TRAIN_EPOCHS, out_dir)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    want = {"slic_assign": 0,
-            "fused_mha": 2 * (train_steps + eval_steps) * TRAIN_EPOCHS,
-            "fused_mha_bwd": 2 * train_steps * TRAIN_EPOCHS}
+    want = with_canny({"slic_assign": 0,
+                       "fused_mha": 2 * (train_steps + eval_steps) * TRAIN_EPOCHS,
+                       "fused_mha_bwd": 2 * train_steps * TRAIN_EPOCHS})
     emit({"phase": "train_slice", "records": TRAIN_RECORDS, "batch": BATCH,
           "epochs": TRAIN_EPOCHS, "train_steps_per_epoch": train_steps,
           "eval_steps_per_epoch": eval_steps, "bucket": ds.max_rg_nodes,
@@ -1116,7 +1189,7 @@ def phase_train_slice(torch, np, kernels, api, train_mod, out_dir):
     kernels.reset_launches()
     _, _, _, drop_history, _ = fit_fusion(train_mod, records, "cuda", 0.3, 1, augment=True)
     drop_launches = dict(kernels.LAUNCHES)
-    drop_want = {"slic_assign": 0, "fused_mha": 2 * eval_steps, "fused_mha_bwd": 0}
+    drop_want = with_canny({"slic_assign": 0, "fused_mha": 2 * eval_steps, "fused_mha_bwd": 0})
     emit({"phase": "train_dropout", "dropout": 0.3, "augment": True,
           "launches": drop_launches, "expected_launches": drop_want,
           "history": drop_history})
@@ -1311,7 +1384,8 @@ def phase_train_rg(torch, np, kernels, api, out_dir):
         torch, train_rg, model_mod, ds, "cuda", out=ckpt)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    want = {"slic_assign": SLIC_ITERS * -(-RG_IMAGES // 16), "fused_mha": 0, "fused_mha_bwd": 0}
+    want = with_canny({"slic_assign": SLIC_ITERS * -(-RG_IMAGES // 16), "fused_mha": 0,
+                       "fused_mha_bwd": 0})
     steps = {"train": len(train_rg.epoch_order(np.random.default_rng(0), range(n_train), BATCH, False)),
              "eval": len(train_rg.epoch_order(np.random.default_rng(0), range(RG_IMAGES - n_train),
                                               BATCH, False))}
@@ -1549,6 +1623,7 @@ def counted(torch, kernels, fn):
 
 
 def expect(launches, want, what):
+    want = with_canny(want)
     emit({"phase": "workflow_launches", "of": what, "launches": launches,
           "expected_launches": want})
     if launches != want:
@@ -1945,7 +2020,8 @@ def phase_serve(torch, np, kernels, api, slic_mod):
           "launches": launches,
           "note": "/stats latencies are submit to result inside the server, over every request "
                   "since warmup (its one request included); client times are the HTTP round trip"})
-    want = {"slic_assign": SLIC_ITERS * batches, "fused_mha": 2 * batches, "fused_mha_bwd": 0}
+    want = with_canny({"slic_assign": SLIC_ITERS * batches, "fused_mha": 2 * batches,
+                       "fused_mha_bwd": 0})
     if launches != want:
         fail(f"the serving burst launched {launches}, expected {want} for {batches} batches")
     if (after["requests"] - before["requests"] != SERVE_REQUESTS or len(burst_buckets) != batches
@@ -2248,8 +2324,8 @@ def phase_surface(torch, np, kernels):
     finally:
         del sys.modules["neo4j"]
 
-    want_detect = {"slic_assign": SLIC_ITERS, "fused_mha": 0, "fused_mha_bwd": 0}
-    want_predict = {"slic_assign": SLIC_ITERS, "fused_mha": 2, "fused_mha_bwd": 0}
+    want_detect = with_canny({"slic_assign": SLIC_ITERS, "fused_mha": 0, "fused_mha_bwd": 0})
+    want_predict = with_canny({"slic_assign": SLIC_ITERS, "fused_mha": 2, "fused_mha_bwd": 0})
     emit({"phase": "surface", "size": SIZE, "segments": SURFACE_SEGMENTS, "band": band,
           "detect_camouflage": {"launches": detect_launches, "expected_launches": want_detect,
                                 "host_ms": 1e3 * detect_s},
@@ -2351,9 +2427,10 @@ def dp_expected(np):
     per fusion train step."""
     n_fu = int(0.8 * TRAIN_RECORDS)
     train, evals = n_fu // BATCH, (TRAIN_RECORDS - n_fu) // BATCH
-    return ({"slic_assign": SLIC_ITERS * -(-RG_IMAGES // 16), "fused_mha": 0, "fused_mha_bwd": 0},
-            {"slic_assign": 0, "fused_mha": 2 * (train + evals) * TRAIN_EPOCHS,
-             "fused_mha_bwd": 2 * train * TRAIN_EPOCHS})
+    return (with_canny({"slic_assign": SLIC_ITERS * -(-RG_IMAGES // 16), "fused_mha": 0,
+                        "fused_mha_bwd": 0}),
+            with_canny({"slic_assign": 0, "fused_mha": 2 * (train + evals) * TRAIN_EPOCHS,
+                        "fused_mha_bwd": 2 * train * TRAIN_EPOCHS}))
 
 
 def dp_diffs(torch, np, got, want, fits=("rg", "fusion")):
@@ -2519,7 +2596,8 @@ def phase_data_parallel(torch, np, kernels, api, out_dir):
     eval_b1 = SLIC_ITERS * -(-WORKFLOW_IMAGES // WORKFLOW_BATCH)
     for r, pr in enumerate(per_rank):
         if (pr["fusion"] != want_fusion or pr["rg"]["fused_mha"] or pr["rg"]["fused_mha_bwd"]
-                or pr["evaluate"] != {"slic_assign": eval_b1, "fused_mha": 0, "fused_mha_bwd": 0}):
+                or pr["evaluate"] != with_canny({"slic_assign": eval_b1, "fused_mha": 0,
+                                                 "fused_mha_bwd": 0})):
             fail(f"rank {r} launched {pr}")
     if sum(build) != want_rg["slic_assign"] or 0 in build:
         fail(f"the two ranks' graph builds launched B1 {build} times, expected "
@@ -2849,9 +2927,9 @@ def phase_model_axis(torch, np, kernels, api, out_dir):
                 if k.startswith(f"spatial{b}/")}
         spatial[b], ok = spatial_diffs(np, mine, alone_spatial[b]["outputs"])
         spatial_ok = spatial_ok and ok
-    fit_b1 = {"slic_assign": 0, "fused_mha": want_fusion["fused_mha"],
-              "fused_mha_bwd": want_fusion["fused_mha_bwd"]}
-    spatial_want = {"slic_assign": SLIC_ITERS, "fused_mha": 2, "fused_mha_bwd": 0}
+    fit_b1 = with_canny({"slic_assign": 0, "fused_mha": want_fusion["fused_mha"],
+                         "fused_mha_bwd": want_fusion["fused_mha_bwd"]})
+    spatial_want = with_canny({"slic_assign": SLIC_ITERS, "fused_mha": 2, "fused_mha_bwd": 0})
     per_rank = [{"fit": res["fit"]["launches"],
                  **{f"spatial_batch{b}": res["spatial"][str(b)]["launches"] for b in MP_BATCHES}}
                 for res in ranks]
@@ -3029,7 +3107,7 @@ def phase_bench(torch, np, kernels, out_dir):
                                       env=env, timeout=BENCH_TIMEOUT)
         row = bench_sweep.row_of(size, batch, line)
         n = line["forwards"]
-        want = {"slic_assign": SLIC_ITERS * n, "fused_mha": 2 * n, "fused_mha_bwd": 0}
+        want = with_canny({"slic_assign": SLIC_ITERS * n, "fused_mha": 2 * n, "fused_mha_bwd": 0})
         emit({"phase": "bench_row", **row, "seconds": time.perf_counter() - r0,
               "line": line, "expected_launches": want})
         missing = keys - set(line)
@@ -3056,7 +3134,7 @@ def phase_bench(torch, np, kernels, out_dir):
     gpu = pipe(x, kg)
     torch.cuda.synchronize()
     got = dict(kernels.LAUNCHES)
-    want = {"slic_assign": SLIC_ITERS, "fused_mha": 2, "fused_mha_bwd": 0}
+    want = with_canny({"slic_assign": SLIC_ITERS, "fused_mha": 2, "fused_mha_bwd": 0})
     if got != want:
         fail(f"a 352^2 bench batch launched {got}, expected {want}")
     phase_profile(torch, "one bench batch of 16 at 352^2", lambda: pipe(x, kg))
@@ -3293,13 +3371,19 @@ def repo_state():
 
 
 def expect_quality(launches, want, what):
+    want = with_canny(want)
     emit({"phase": "quality_launches", "of": what, "launches": launches, "expected": want})
     if launches != want:
         fail(f"{what} launched {launches}, expected {want}")
 
 
-def expect_b1(launches, want_b1, what):
-    expect_quality(launches, per_forward(1, want_b1, 0), what)
+def expect_b1(launches, want_b1, what, builds=None):
+    """B1 ``want_b1`` launches, no B2 or B3, and Canny's kernel once a graph
+    build: ``builds``, by default one for each ``SLIC_ITERS`` of B1."""
+    want = per_forward(1, want_b1, 0)
+    if builds is not None:
+        want["canny_hysteresis"] = builds
+    expect_quality(launches, want, what)
 
 
 def stand_in_fusion_model(path, source):
@@ -3464,7 +3548,7 @@ def phase_quality(torch, np, kernels, out_dir):
         # main's "jax_vs_skimage" is then the card's counts minus the CPU's.
         cross, t_main, got = counted(torch, kernels, lambda: slic_node_crossval.main(
             ["--np-sample", str(QUALITY_NP), "--out", out]))
-        expect_b1(got, SLIC_ITERS, "slic_node_crossval main (one batch)")
+        expect_b1(got, SLIC_ITERS, "slic_node_crossval main (one batch, SLIC alone)", builds=0)
         delta = cross["jax_vs_skimage"]
         emit({"phase": "slic_node_crossval", "cpu_seconds": t_cpu, "main_seconds": t_main,
               "card_minus_cpu": {k: v for k, v in delta.items() if k != "per_category"},
@@ -3717,9 +3801,11 @@ class _NamesSystem:
         return os.system, ("true",)
 
 
-def per_forward(forwards: int, b1: int, b2: int, b3: int = 0) -> dict:
-    return {"slic_assign": b1 * forwards, "fused_mha": b2 * forwards,
-            "fused_mha_bwd": b3 * forwards}
+def per_forward(forwards: int, b1: int, b2: int, b3: int = 0, iters: int = SLIC_ITERS) -> dict:
+    """The launches of ``forwards`` calls, each launching B1 ``b1`` times
+    (graph builds of ``iters`` SLIC iterations), B2 ``b2`` and B3 ``b3``."""
+    return with_canny({"slic_assign": b1 * forwards, "fused_mha": b2 * forwards,
+                       "fused_mha_bwd": b3 * forwards}, iters)
 
 
 def phase_scripts(torch, np, kernels, api, out_dir):
@@ -3772,7 +3858,7 @@ def phase_scripts(torch, np, kernels, api, out_dir):
     got = dict(kernels.LAUNCHES)
     emit({"phase": "profile_connectivity", "seconds": time.perf_counter() - t0,
           "launches": got, **conn})
-    if got != per_forward(1, SLIC_ITERS, 0):
+    if got != {**per_forward(1, SLIC_ITERS, 0), "canny_hysteresis": 0}:
         fail(f"profile_connectivity launched {got}, expected B1 {SLIC_ITERS} alone")
     if not (isinstance(conn["device"], dict) and all(
             isinstance(v["device_busy_ms"], float) and len(v["top_kernels"]) == 5
@@ -3833,7 +3919,7 @@ def phase_scripts(torch, np, kernels, api, out_dir):
     finite = all(bool(torch.isfinite(t).all()) for t in outs)
     emit({"phase": "graft_entry", "ms": sorted(ms)[len(ms) // 2], "calls": len(ms),
           "launches": got, "shapes": [list(t.shape) for t in outs], "finite": finite})
-    if got != per_forward(SCRIPTS_ENTRY_CALLS, 4, 2) or not finite:
+    if got != per_forward(SCRIPTS_ENTRY_CALLS, 4, 2, iters=4) or not finite:
         fail(f"graft_entry: launches {got} over {SCRIPTS_ENTRY_CALLS} calls "
              f"(expected B1 4, B2 2 a call), finite {finite}")
     launches["graft_entry"] = got
@@ -3849,9 +3935,9 @@ def phase_scripts(torch, np, kernels, api, out_dir):
                  f"against one CPU process's {cpu_loss} (bar {SCRIPTS_DRY_LOSS_BAR})")
         for rank in dry["ranks"]:
             want = {"fusion_step": per_forward(1, 0, 2, 2),
-                    "data_parallel": per_forward(1, 2, 0)}
+                    "data_parallel": per_forward(1, 2, 0, iters=2)}
             if mesh[1] > 1:
-                want["spatial"] = per_forward(1, 2, 0)
+                want["spatial"] = per_forward(1, 2, 0, iters=2)
             got = {k: rank[k]["launches"] for k in want}
             if got != want or ("spatial" in rank) != (mesh[1] > 1):
                 fail(f"dryrun_multichip({n}) rank {rank['rank']}: launches {got}, "
@@ -3888,7 +3974,8 @@ def phase_slice(torch, np, kernels, api, n_batches):
     outs = [predictor.predict_batch(b) for b in batches]
     launches = dict(kernels.LAUNCHES)
 
-    want = {"slic_assign": SLIC_ITERS * n_batches, "fused_mha": 2 * n_batches}
+    want = {"slic_assign": SLIC_ITERS * n_batches, "fused_mha": 2 * n_batches,
+            "canny_hysteresis": n_batches}
     emit({"phase": "slice", "batches": n_batches, "batch": BATCH, "size": SIZE,
           "launches": launches, "expected_launches": want,
           "window_drift": [float(x) for o in outs for x in o["window_drift"]],
@@ -4284,6 +4371,7 @@ def main() -> None:
     fusion_model, _ = api.load_multimodal_model(ARTIFACTS[0], device="cuda")
     b2_cases, b2_err = phase_fused_mha(torch, kernels, attention_mod, fusion_model)
     b3_cases, b3_err = phase_fused_mha_bwd(torch, kernels, attention_mod, fusion_model)
+    canny_rows = phase_canny_hysteresis(torch, kernels)
     predictor, batches, launches = phase_slice(torch, np, kernels, api, args.batches)
     surface_launches = phase_surface(torch, np, kernels)
     with tempfile.TemporaryDirectory() as out_dir:
@@ -4398,6 +4486,19 @@ def main() -> None:
          "plain_ms": sum(v["plain_ms"] for v in b3.values()),
          "bound_ms": b3_bound[0], "bound_by": b3_bound[1],
          "library_ms": sum(v["library_ms"] for v in b3.values())},
+        {"name": "canny_hysteresis", "route": "cuda",
+         "source": "camouflage_multimodal_tpu_torch/csrc/canny_hysteresis.cu",
+         "replaces": None, "jax": "camouflage_multimodal_tpu/ops/canny.py _hysteresis "
+                                  "(a lax.while_loop inside one program)",
+         "per": "1 launch: the hysteresis of 16 images (one graph build)",
+         "launches": launches["canny_hysteresis"],
+         "launches_rg_training": rg_launches["canny_hysteresis"],
+         "launches_workflow": workflow_launches["canny_hysteresis"],
+         "launches_serving": serve_launches["canny_hysteresis"],
+         "launches_bench": {row: v["canny_hysteresis"] for row, v in bench_launches.items()},
+         **{f"{key}_{r['size']}": r[key] for r in canny_rows for key in (
+             "ms", "host_ms", "device_ms", "plain_ms", "bound_ms", "rounds")},
+         "bound_by": canny_rows[0]["bound_by"], "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -386,8 +386,10 @@ def test_train_step_on_card_matches_cpu(dev):
         stepped, _ = trainer.train_step(on_dev, 5e-4)
         assert float(stepped) == float(loss.detach())
         results[device] = (float(loss), grads, dict(kernels.LAUNCHES))
-    assert results["cuda"][2] == {"slic_assign": 0, "fused_mha": 4, "fused_mha_bwd": 4}
-    assert results["cpu"][2] == {"slic_assign": 0, "fused_mha": 0, "fused_mha_bwd": 0}
+    assert results["cuda"][2] == {"slic_assign": 0, "fused_mha": 4, "fused_mha_bwd": 4,
+                                  "canny_hysteresis": 0}
+    assert results["cpu"][2] == {"slic_assign": 0, "fused_mha": 0, "fused_mha_bwd": 0,
+                                 "canny_hysteresis": 0}
     assert abs(results["cuda"][0] - results["cpu"][0]) <= 1e-4 * abs(results["cpu"][0])
     for key, want in results["cpu"][1].items():
         torch.testing.assert_close(results["cuda"][1][key], want, rtol=1e-3, atol=1e-5,
@@ -436,7 +438,8 @@ def test_rg_graph_build_launches_b1_and_matches_cpu(dev):
     kernels.reset_launches()
     data = trainer.build_cached_dataset(ds, batch_size=16, device="cuda")
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"slic_assign": 6, "fused_mha": 0, "fused_mha_bwd": 0}
+    assert kernels.LAUNCHES == {"slic_assign": 6, "fused_mha": 0, "fused_mha_bwd": 0,
+                                "canny_hysteresis": 2}
     trainer.model.to(dev)
     trainer.optimizer = torch.optim.AdamW(trainer.model.parameters())
     trainer.train_step(trainer.gather(data, torch.arange(4, device=dev)), 1e-3)

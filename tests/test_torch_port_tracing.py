@@ -238,7 +238,10 @@ def test_one_span_helper_and_every_span_named_cmt():
 @pytest.mark.cuda
 def test_spans_are_not_device_work_on_the_card():
     """On the card, under CPU and CUDA tracing: the spans' mirrors on the
-    card's timeline are no card events, and the kernels are."""
+    card's timeline are no card events, and the kernels are. Canny's
+    hysteresis runs its fixed point in one kernel there, so it opens no
+    ``cmt::sync.canny`` span, and that kernel's launch call lies inside
+    ``cmt::canny`` on the caller's thread."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     images = _images(n=4, size=96, device="cuda")
@@ -251,7 +254,25 @@ def test_spans_are_not_device_work_on_the_card():
         torch.cuda.synchronize()
         return out, walked
 
-    _, events = _profiled(run, (ProfilerActivity.CPU, ProfilerActivity.CUDA))
-    assert set(SYNC_SPANS + WALK_SPANS).union(UPLOAD_SPANS) <= {e.name for e in events}
+    config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=config) as prof:
+        run()
+    events = prof.events()
+    names = {e.name for e in events}
+    on_card = set(SYNC_SPANS + WALK_SPANS).union(UPLOAD_SPANS) - {"cmt::sync.canny"}
+    assert on_card <= names and "cmt::sync.canny" not in names
     card = [e for e in events if profiling.is_card_event(e)]
     assert card and not any(e.name.startswith("cmt::") for e in card)
+
+    raw = prof.profiler.kineto_results.events()
+    cpu = torch.autograd.DeviceType.CPU
+    hysteresis = {ev.correlation_id() for ev in raw if ev.device_type() != cpu
+                  and "canny_hysteresis_kernel" in ev.name()}
+    launches = [(ev.start_ns(), ev.start_thread_id()) for ev in raw if ev.device_type() == cpu
+                and ev.name().startswith(("cudaLaunch", "cuLaunch"))
+                and ev.correlation_id() in hysteresis]
+    canny = [(ev.start_ns(), ev.start_ns() + ev.duration_ns(), ev.start_thread_id())
+             for ev in raw if ev.device_type() == cpu and ev.name() == "cmt::canny"]
+    assert len(hysteresis) == 1 and len(launches) == 1 and len(canny) == 1
+    assert all(a <= t <= b and u == thread for t, thread in launches for a, b, u in canny)
