@@ -58,12 +58,6 @@
 
 #include <cuda_runtime.h>
 
-// Measurement only (measure_kernels.py builds these to see what bounds the
-// kernel; results are wrong): 1 = no mma, 2 = loads only, 3 = no loads.
-#ifndef GEMM3_VARIANT
-#define GEMM3_VARIANT 0
-#endif
-
 namespace gemm3 {
 
 constexpr int kBM = 32;        // rows of a block's tile
@@ -127,9 +121,6 @@ __device__ __forceinline__ void load_stage(Smem<BN>& s, int stage, const float* 
                                            int ldb, int n, int row0, int col0, int k0,
                                            int k_end) {
   constexpr int kWStride = Smem<BN>::kWStride;
-#if GEMM3_VARIANT == 3
-  if (k0 >= 0) return;
-#endif
   if constexpr (FORM == kTN) {
     for (int i = threadIdx.x; i < kBK * kBM / 4; i += kThreads) {
       const int kk = i / (kBM / 4), c = (i % (kBM / 4)) * 4;
@@ -203,9 +194,6 @@ __device__ void tile_form(Smem<BN>& s, const float* __restrict__ a, const float*
 
     const float* xs = s.x[kt % kStages];
     const float* ws = s.w[kt % kStages];
-#if GEMM3_VARIANT == 2
-    if (kt >= 0) continue;
-#endif
     if constexpr (FORM == kTN) {
       if (colsum != nullptr && threadIdx.x < BN) {
 #pragma unroll 8
@@ -237,17 +225,12 @@ __device__ void tile_form(Smem<BN>& s, const float* __restrict__ a, const float*
           split_tf32(ws[(k8 + tig) * kWStride + c], b_hi[0], b_lo[0]);
           split_tf32(ws[(k8 + tig + 4) * kWStride + c], b_hi[1], b_lo[1]);
         }
-#if GEMM3_VARIANT == 1
-        acc[nt][0] += __uint_as_float(a_lo[0] ^ a_lo[1] ^ a_lo[2] ^ a_lo[3] ^ a_hi[0] ^ a_hi[1] ^
-                                      a_hi[2] ^ a_hi[3] ^ b_lo[0] ^ b_lo[1] ^ b_hi[0] ^ b_hi[1]);
-#else
         mma_tf32(tail[nt], a_lo, b_hi);
         mma_tf32(tail[nt], a_hi, b_lo);
         float head[4] = {};
         mma_tf32(head, a_hi, b_hi);
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[nt][i] += head[i];
-#endif
       }
     }
   }

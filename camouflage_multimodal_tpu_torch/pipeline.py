@@ -30,7 +30,7 @@ from camouflage_multimodal_tpu_torch.core.profiling import annotate
 from camouflage_multimodal_tpu_torch.models.fusion import MultimodalCamouflageDetector
 from camouflage_multimodal_tpu_torch.models.region_graph import RegionGraphGNN
 from camouflage_multimodal_tpu_torch.ops.canny import canny
-from camouflage_multimodal_tpu_torch.ops.connectivity import enforce_label_connectivity_batched
+from camouflage_multimodal_tpu_torch.ops.connectivity import enforce_label_connectivity
 from camouflage_multimodal_tpu_torch.ops.image import rgb_to_gray
 from camouflage_multimodal_tpu_torch.ops.rag import rag_edge_weights, region_adjacency
 from camouflage_multimodal_tpu_torch.ops.regions import region_features, region_label_means
@@ -88,8 +88,8 @@ def build_region_graphs(images: torch.Tensor, n_segments: int = 500,
                           backend="exact", enforce_connectivity=False, return_drift=True,
                           window_radius=window_radius, row_group=row_group)
     with annotate("cmt::connectivity"):
-        seg = enforce_label_connectivity_batched(raw, n_segments, max_labels=max_nodes,
-                                                 row_group=row_group)
+        seg = enforce_label_connectivity(raw, n_segments, max_labels=max_nodes,
+                                         row_group=row_group)
     with annotate("cmt::canny"):
         edges = canny(rgb_to_gray(images), sigma=2.0, row_group=row_group)
     with annotate("cmt::region_features"):

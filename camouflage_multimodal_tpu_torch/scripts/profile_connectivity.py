@@ -1,9 +1,8 @@
 """Differential breakdown of the connectivity stage.
 
 Port of the JAX system's ``scripts/profile_connectivity.py``: splits the
-per-pixel connectivity pass (``ops.connectivity.enforce_label_connectivity``,
-the one the pipeline runs) on a real SLIC label batch (16 × 352²,
-``n_segments=500``) into its two halves:
+connectivity pass (``ops.connectivity.enforce_label_connectivity``) on a
+real SLIC label batch (16 × 352², ``n_segments=500``) into its two halves:
 
   - ``connected_components`` alone (the segmented-min sweeps to a fixed
     point), with the number of sweeps each image needs;

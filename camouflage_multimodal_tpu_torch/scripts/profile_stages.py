@@ -1,18 +1,16 @@
 """Per-stage wall-clock profile of the inference pipeline with real barriers.
 
 Port of the JAX system's ``scripts/profile_stages.py``: times each stage of
-the port's pipeline (SLIC's iterations through kernel B1, connectivity —
-the per-pixel path the pipeline runs and the run-structured one —, Canny,
-segment features, adjacency, RAG weights, the GNN, the fusion through
-kernel B2 and the paint-back) as its own call at bench shapes, on the
+the port's pipeline (SLIC's iterations through kernel B1, connectivity,
+Canny, segment features, adjacency, RAG weights, the GNN, the fusion
+through kernel B2 and the paint-back) as its own call at bench shapes, on the
 bench's models (``bench.build_models``). Each time is the median over
 ``--iters`` host-clock iterations, each ending in a device→host pull of one
 element; ``_dispatch_floor_ms_per_img`` is a trivial op timed the same way.
 On the card, ``_device_busy_ms_per_img`` gives each stage's device-busy
 time from ``torch.profiler`` (``core.profiling.device_busy_ms``: the union
 of its kernels' and copies' spans), so host time and card time can be told
-apart. ``_total_ms_per_img`` sums the stages the pipeline runs (all but
-``connectivity_runs``).
+apart. ``_total_ms_per_img`` sums the stages.
 
     python -m camouflage_multimodal_tpu_torch.scripts.profile_stages \\
         --image-size 352 --batch 16 --iters 20 [--device cuda|cpu] [--image-dir DIR]
@@ -36,18 +34,17 @@ from camouflage_multimodal_tpu_torch.bench import (
 from camouflage_multimodal_tpu_torch.core.device import resolve_device
 from camouflage_multimodal_tpu_torch.core.profiling import device_busy_ms
 from camouflage_multimodal_tpu_torch.ops.canny import canny
-from camouflage_multimodal_tpu_torch.ops.connectivity import (
-    enforce_label_connectivity, enforce_label_connectivity_runs)
+from camouflage_multimodal_tpu_torch.ops.connectivity import enforce_label_connectivity
 from camouflage_multimodal_tpu_torch.ops.image import rgb_to_gray
 from camouflage_multimodal_tpu_torch.ops.rag import rag_edge_weights, region_adjacency
 from camouflage_multimodal_tpu_torch.ops.regions import region_features
 from camouflage_multimodal_tpu_torch.ops.slic import slic
 from camouflage_multimodal_tpu_torch.pipeline import paint_segments
 
-# The JAX script's stages, then the two its docstring lists that it does
-# not time.
-STAGES = ("slic_iterations", "connectivity", "connectivity_runs", "canny",
-          "segment_features", "adjacency", "rag_weights", "rg_gnn", "fusion", "paint")
+# The JAX script's stages but its run-structured connectivity, which the
+# port does not have, then the two its docstring lists that it does not time.
+STAGES = ("slic_iterations", "connectivity", "canny", "segment_features", "adjacency",
+          "rag_weights", "rg_gnn", "fusion", "paint")
 SLIC_ITERS = 10
 BUSY_CALLS = 3             # calls under the profiler per stage
 
@@ -108,8 +105,6 @@ def stage_calls(pipe, kg: torch.Tensor, imgs: torch.Tensor, n_segments: int
     return {
         "slic_iterations": slic_raw,
         "connectivity": conn,
-        "connectivity_runs": lambda: enforce_label_connectivity_runs(
-            labels_raw, n_segments, max_labels=K),
         "canny": lambda: canny(gray, sigma=2.0),
         "segment_features": lambda: feats_f()["features"],
         "adjacency": lambda: region_adjacency(labels, K),
@@ -144,7 +139,7 @@ def profile(image_size: int = 352, batch: int = 16, n_segments: int = 500,
         print(f"{name:20s} {ms:8.3f} ms/img", flush=True)
     out["_dispatch_floor_ms_per_img"] = round(floor_ms, 4)
     out["_total_ms_per_img"] = round(
-        sum(v for k, v in out.items() if not k.startswith("_") and k != "connectivity_runs"), 4)
+        sum(v for k, v in out.items() if not k.startswith("_")), 4)
     out["_device_busy_ms_per_img"] = busy if dev.type == "cuda" else "not measured"
     out["_config"] = {"image_size": image_size, "batch": batch, "n_segments": n_segments,
                       "max_nodes": pipe.rg.max_nodes, "iters": iters,

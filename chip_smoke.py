@@ -58,12 +58,10 @@ Phases, each failing the run (nonzero exit, no result line) when it fails:
    chunked, with the same times; ``slic`` with each backend (``"window"``,
    ``"exact"``) on the card against the CPU on one 352² image at
    compactness 20 with RGB features: ≥ 99.5 % of labels equal; the
-   connectivity dispatcher against the per-pixel path on raw maps of 4 ×
-   256², 16 × 352² and 16 × 416² seeded images (500 segments): labels equal
-   to the bit, the fallback flag, the runs path's labels and counts, rounds
-   and raw components equal to the CPU's per-pixel path, and the per-pixel
-   and runs paths' host ms and event ms (each call ending in a device→host
-   pull) and device busy ms (``torch.profiler``);
+   connectivity pass on raw maps of 4 × 256², 16 × 352² and 16 × 416²
+   seeded images (500 segments): labels, counts, rounds and raw components
+   equal to the CPU's to the bit, and its host ms and event ms (each call
+   ending in a device→host pull) and device busy ms (``torch.profiler``);
    Canny at thresholds (0.05, 0.15) and (0.2, 0.4) on contrast-stretched
    images, card vs CPU: at most 0.1 % of pixels differ;
 3. kernel B2 ``fused_mha`` against its plain version with the committed
@@ -774,7 +772,7 @@ def timed_path(torch, fn, reps: int = CONN_REPS):
 
 def phase_ops_surface(torch, slic_mod):
     """Phase 2b: B1 at large K and unchanged at K = 529, ``slic``'s two
-    backends, the connectivity dispatcher against the per-pixel path, and
+    backends, the connectivity pass, and
     Canny's thresholds, each on the card against the plain or CPU result."""
     conn = importlib.import_module("camouflage_multimodal_tpu_torch.ops.connectivity")
     canny_mod = importlib.import_module("camouflage_multimodal_tpu_torch.ops.canny")
@@ -824,39 +822,27 @@ def phase_ops_surface(torch, slic_mod):
         if equal < 0.995 or got.shape != want.shape:
             fail(f"slic(backend={backend!r}) on the card agrees on {equal} of the labels")
 
-    # (d) the connectivity dispatcher against the per-pixel path.
+    # (d) the connectivity pass on the card against the CPU: labels and the
+    # three counts, to the bit.
     times = {}
     for batch, size in CONN_SIZES:
         images = torch.from_numpy(synthetic_images(40 + size, batch, size)).cuda().float() / 255.0
         raw = slic_mod.slic(images, backend="exact", enforce_connectivity=False)
         kw = dict(n_segments=500, max_labels=padded_nodes(500, size))
-        out, fallback = conn.enforce_label_connectivity_batched(raw, return_fallback=True, **kw)
-        pixel = conn.enforce_label_connectivity(raw, **kw)
-        # The runs path's telemetry against the CPU's per-pixel path, with a
-        # bucket that holds every row-run (so it is exact whatever the count).
         flags = dict(return_count=True, return_rounds=True, return_raw_count=True)
-        runs = conn.enforce_label_connectivity_runs(raw, run_bucket=size * size, **kw, **flags)
+        card = conn.enforce_label_connectivity(raw, **kw, **flags)
         cpu = conn.enforce_label_connectivity(raw.cpu(), **kw, **flags)
-        counts_equal = all(torch.equal(a.cpu(), b) for a, b in zip(runs[1:], cpu[1:]))
-        rec = {"batch": batch, "size": size, "fallback": fallback,
-               "equal_to_per_pixel": bool(torch.equal(out, pixel)),
-               "runs_equal_to_cpu": bool(torch.equal(runs[0].cpu(), cpu[0])),
-               "counts_rounds_raw_equal_to_cpu": counts_equal,
-               "rounds": [int(x) for x in runs[2]], "raw_components_max": int(runs[3].max()),
-               "row_runs_max": int(conn._row_run_starts(raw).sum(dim=(1, 2)).max()),
-               "run_bucket": size * size // 4}
-        # The dispatcher is the per-pixel path; the runs path is timed as the
-        # record of why it is not dispatched.
-        paths = {"per_pixel": lambda: conn.enforce_label_connectivity(raw, **kw)}
-        if not fallback:
-            paths["runs"] = lambda: conn.enforce_label_connectivity_runs(raw, **kw)
-        for name, fn in paths.items():
-            (rec[f"{name}_host_ms"], rec[f"{name}_event_ms"],
-             rec[f"{name}_device_busy_ms"]) = timed_path(torch, fn)
+        rec = {"batch": batch, "size": size,
+               "labels_equal_to_cpu": bool(torch.equal(card[0].cpu(), cpu[0])),
+               "counts_rounds_raw_equal_to_cpu": all(
+                   torch.equal(a.cpu(), b) for a, b in zip(card[1:], cpu[1:])),
+               "rounds": [int(x) for x in card[2]], "raw_components_max": int(card[3].max())}
+        rec["host_ms"], rec["event_ms"], rec["device_busy_ms"] = timed_path(
+            torch, lambda: conn.enforce_label_connectivity(raw, **kw))
         times[f"{batch}x{size}"] = rec
         emit({"phase": "ops_surface_connectivity", **rec})
-        if not (rec["equal_to_per_pixel"] and rec["runs_equal_to_cpu"] and counts_equal):
-            fail(f"connectivity paths disagree at {batch} x {size}^2: {rec}")
+        if not (rec["labels_equal_to_cpu"] and rec["counts_rounds_raw_equal_to_cpu"]):
+            fail(f"connectivity on the card differs from the CPU at {batch} x {size}^2: {rec}")
 
     # (e) Canny at the non-default thresholds, card vs CPU, on contrast-
     # stretched images (edges above both thresholds).

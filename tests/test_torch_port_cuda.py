@@ -102,20 +102,17 @@ def test_slic_backends_on_card_match_cpu(dev, backend):
     assert (got == S.slic(imgs.cpu(), **kw)).float().mean() >= 0.995
 
 
-def test_connectivity_dispatcher_on_card(dev):
-    """The dispatcher, the runs path and the per-pixel path on the card:
-    labels equal to the bit to each other and to the CPU's, telemetry too."""
+def test_connectivity_on_card_matches_cpu(dev):
+    """The connectivity pass on the card: labels and the three counts
+    equal to the CPU's, to the bit."""
     C = importlib.import_module("camouflage_multimodal_tpu_torch.ops.connectivity")
     raw = S.slic(_images(dev, 4, 128, 4), n_segments=120, backend="exact",
                  enforce_connectivity=False)
-    out, fallback = C.enforce_label_connectivity_batched(raw, 120, max_labels=256,
-                                                         return_fallback=True)
-    assert not fallback
     flags = dict(return_count=True, return_rounds=True, return_raw_count=True)
-    runs = C.enforce_label_connectivity_runs(raw, 120, max_labels=256, **flags)
+    card = C.enforce_label_connectivity(raw, 120, max_labels=256, **flags)
     cpu = C.enforce_label_connectivity(raw.cpu(), 120, max_labels=256, **flags)
-    assert torch.equal(out, runs[0]) and torch.equal(out.cpu(), cpu[0])
-    assert all(torch.equal(a.cpu(), b) for a, b in zip(runs[1:], cpu[1:]))
+    assert card[0].device == raw.device
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
 
 
 def _center_case(case, centers, step, height, width, dev):

@@ -1,8 +1,7 @@
 """The PyTorch port's ``ops`` package at the JAX ``ops`` package's full
 contract, on the CPU: image ops with every border mode and truncation,
-both dilations, Canny's thresholds, the connectivity pass's three entry
-points and their telemetry, and ``slic`` with both backends and every
-parameter.
+both dilations, Canny's thresholds, the connectivity pass and its
+telemetry, and ``slic`` with both backends and every parameter.
 
 Inputs are seeded with numpy and go through the JAX function and the
 port's. Every assertion states its tolerance and why. ``ops.slic`` and
@@ -122,7 +121,7 @@ def test_canny_thresholds(gray, low, high):
 
 
 # ---------------------------------------------------------------------------
-# Connectivity: the runs path, the dispatcher and the per-pixel path
+# Connectivity: the one path, held against both of JAX's
 # ---------------------------------------------------------------------------
 
 def _salted(seed: int, frac: float = 0.03) -> np.ndarray:
@@ -181,52 +180,35 @@ CONNECTIVITY_CASES = ["stripes_64", "stripes_63", "stripes_8", "rows", "quadrant
 
 @pytest.mark.parametrize("name", CONNECTIVITY_CASES)
 def test_connectivity_paths_bit_equal(name):
-    """Integer algorithm: the port's dispatcher equals JAX's
-    ``enforce_label_connectivity_batched(..., return_fallback=True)`` in
-    labels and in the fallback flag (the path JAX takes), bit for bit; the
-    port's per-pixel path gives the same labels, and so does its runs path
-    wherever the runs fit the bucket."""
+    """Integer algorithm: the port's ``enforce_label_connectivity`` equals
+    JAX's ``enforce_label_connectivity_batched(..., return_fallback=True)``
+    in labels, bit for bit, whichever of its two paths JAX takes (its flag,
+    asserted where the case is built to pick one)."""
     labels, n_seg, kw = _connectivity_case(name)
     labels = labels.astype(np.int32)
     want, want_fb = J_conn.enforce_label_connectivity_batched(
         jnp.asarray(labels), n_seg, return_fallback=True, **kw)
-    want = np.asarray(want)
-    got, fb = T_conn.enforce_label_connectivity_batched(t(labels), n_seg,
-                                                        return_fallback=True, **kw)
-    assert fb == bool(want_fb)
-    assert got.dtype == torch.int64
-    np.testing.assert_array_equal(got.numpy(), want)
     pixel_kw = {k: v for k, v in kw.items() if k != "run_bucket"}
-    np.testing.assert_array_equal(
-        T_conn.enforce_label_connectivity(t(labels), n_seg, **pixel_kw).numpy(), want)
-    if not fb:
-        np.testing.assert_array_equal(
-            T_conn.enforce_label_connectivity_runs(t(labels), n_seg, **kw).numpy(), want)
+    got = T_conn.enforce_label_connectivity(t(labels), n_seg, **pixel_kw)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     expected_fb = {"stripes_64": False, "stripes_63": True, "stripes_8": True,
                    "rows": False, "quadrants": False, "checker": False,
                    "checker_bucket": True, "packing_guard": True}
     if name in expected_fb:
-        assert fb == expected_fb[name]
+        assert bool(want_fb) == expected_fb[name]
 
 
-@pytest.mark.parametrize("name", ["stripes_64", "stripes_63", "packing_guard"])
-def test_dispatcher_runs_the_per_pixel_path(name, monkeypatch):
-    """The dispatcher returns the per-pixel path's labels whichever path
-    its flag names, and never calls the runs path (slower on the H100,
-    PERF.md §5); without ``return_fallback`` it returns the labels alone."""
-    labels, n_seg, kw = _connectivity_case(name)
-    labels = t(labels.astype(np.int32))
-
-    def refuse(*a, **k):
-        raise AssertionError("the dispatcher called the runs path")
-
-    monkeypatch.setattr(T_conn, "enforce_label_connectivity_runs", refuse)
-    pixel_kw = {k: v for k, v in kw.items() if k != "run_bucket"}
-    want = T_conn.enforce_label_connectivity(labels, n_seg, **pixel_kw)
-    out, _ = T_conn.enforce_label_connectivity_batched(labels, n_seg, return_fallback=True,
-                                                       **kw)
-    assert torch.equal(out, want)
-    assert torch.equal(T_conn.enforce_label_connectivity_batched(labels, n_seg, **kw), want)
+@pytest.mark.parametrize("shape,n_seg,max_components", [
+    ((1, 1 << 15, 1 << 15), 4, None),      # H·W = 2**30 pixels
+    ((1, 1 << 12, 1 << 12), 4, 1 << 24)])  # a 2**24-entry compact table
+def test_connectivity_refuses_what_int32_cannot_pack(shape, n_seg, max_components):
+    """The port keeps the JAX formulation's int32 bounds: H·W < 2**30 and
+    C < 2**24, else ``ValueError`` before any work. The maps are a 1×1 map
+    expanded with zero strides, so nothing of their size is allocated."""
+    labels = torch.zeros(1, 1, 1, dtype=torch.int32).expand(*shape)
+    with pytest.raises(ValueError, match="int32 packing"):
+        T_conn.enforce_label_connectivity(labels, n_seg, max_components=max_components)
 
 
 def _corner_map() -> np.ndarray:
@@ -246,9 +228,9 @@ def _corner_map() -> np.ndarray:
 def test_connectivity_telemetry(min_size_factor, max_components):
     """``min_size_factor``, ``max_components`` and the three counts
     (survivors, merge rounds, raw components), per image: equal to the JAX
-    per-pixel path's, on both of the port's paths. The batch holds a salted
-    map, a checkerboard (2,304 raw components) and a map that needs two
-    rounds, so each image's rounds are its own."""
+    per-pixel path's. The batch holds a salted map, a checkerboard (2,304
+    raw components) and a map that needs two rounds, so each image's rounds
+    are its own."""
     salted = _salted(8)[:1, :48, :48]
     yy, xx = np.mgrid[:48, :48]
     batch = np.concatenate([salted, ((yy + xx) % 2)[None], _corner_map()[None]])
@@ -257,13 +239,11 @@ def test_connectivity_telemetry(min_size_factor, max_components):
     flags = dict(return_count=True, return_rounds=True, return_raw_count=True)
     want = [jax.device_get(J_conn.enforce_label_connectivity(jnp.asarray(m), 12, **kw, **flags))
             for m in batch]
-    for fn, extra in ((T_conn.enforce_label_connectivity, {}),
-                      (T_conn.enforce_label_connectivity_runs, {"run_bucket": 48 * 48})):
-        out, count, rounds, raw = fn(t(batch), 12, **kw, **extra, **flags)
-        np.testing.assert_array_equal(out.numpy(), np.stack([w[0] for w in want]))
-        for got, i in ((count, 1), (rounds, 2), (raw, 3)):
-            assert got.dtype == torch.int64 and got.shape == (3,)
-            np.testing.assert_array_equal(got.numpy(), [int(w[i]) for w in want])
+    out, count, rounds, raw = T_conn.enforce_label_connectivity(t(batch), 12, **kw, **flags)
+    np.testing.assert_array_equal(out.numpy(), np.stack([w[0] for w in want]))
+    for got, i in ((count, 1), (rounds, 2), (raw, 3)):
+        assert got.dtype == torch.int64 and got.shape == (3,)
+        np.testing.assert_array_equal(got.numpy(), [int(w[i]) for w in want])
     assert [int(w[2]) for w in want][::2] == [1, 2]     # the images' own rounds
 
 
@@ -399,15 +379,14 @@ def test_slic_exact_matches_jax_xla(images):
 
 @pytest.mark.parametrize("backend", ["window", "exact"])
 def test_slic_connectivity_composition(images, backend):
-    """``enforce_connectivity=True`` is the per-pixel pass on the port's own
-    raw map, which equals the dispatcher on it, bit for bit; ``max_labels``
-    clamps."""
+    """``enforce_connectivity=True`` is ``enforce_label_connectivity`` on
+    the port's own raw map, bit for bit; ``max_labels`` clamps."""
     raw = T_slic.slic(t(images), n_segments=N_SEG, backend=backend,
                       enforce_connectivity=False)
     for max_labels in (None, 20):
         seg = T_slic.slic(t(images), n_segments=N_SEG, backend=backend,
                           max_labels=max_labels)
-        want = T_conn.enforce_label_connectivity_batched(raw, N_SEG, max_labels=max_labels)
+        want = T_conn.enforce_label_connectivity(raw, N_SEG, max_labels=max_labels)
         np.testing.assert_array_equal(seg.numpy(), want.numpy())
     assert int(seg.max()) <= 19
 
@@ -431,8 +410,8 @@ def test_slic_composed_matches_jax(images):
 # Exports and signatures
 # ---------------------------------------------------------------------------
 
-# Parameters the port adds: its batch/sharding options and the two
-# connectivity entry points' ``row_group``.
+# Parameters the port adds: its batch/sharding options and the
+# connectivity entry point's ``row_group``.
 PORT_ONLY = {"row_group", "channels_last"}
 
 
@@ -443,13 +422,11 @@ def _params(fn):
 def test_ops_exports_every_jax_name():
     """Every name of the JAX ``ops`` package is exported by the port's, with
     JAX's parameters and defaults (the backend names map as the port's
-    docstring says), and the connectivity entry points with theirs."""
+    docstring says), and the connectivity entry point with its own."""
     names = [n for n in dir(J_ops) if not n.startswith("_") and callable(getattr(J_ops, n))]
     assert len(names) == 13
     pairs = [(getattr(J_ops, n), getattr(T_ops, n)) for n in names]
-    pairs += [(getattr(J_conn, n), getattr(T_conn, n)) for n in (
-        "enforce_label_connectivity", "enforce_label_connectivity_runs",
-        "enforce_label_connectivity_batched")]
+    pairs += [(J_conn.enforce_label_connectivity, T_conn.enforce_label_connectivity)]
     for j_fn, t_fn in pairs:
         want, got = _params(j_fn), _params(t_fn)
         name = j_fn.__name__

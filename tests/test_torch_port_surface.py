@@ -33,7 +33,9 @@ PACKAGES = ("", "core", "kg", "models", "train", "utils")
 # recorder whose part ``torch.profiler`` plays (the port's spans are
 # ``core.profiling.annotate`` ranges, read from its traces). Parameters
 # follow the same idiom (``fit(use_scan=)`` is ``fit(device_resident=)``,
-# ``variables=`` / ``state=`` are a module's own state).
+# ``variables=`` / ``state=`` are a module's own state). The JAX
+# connectivity pass's run-structured path and its dispatcher map to the
+# port's one path, which gives the same labels.
 PORT_RENAMES = {
     "train.state.TrainState": None,
     "core.profiling.StageTimer": None,
@@ -43,6 +45,10 @@ PORT_RENAMES = {
     "ops.pallas_slic.pallas_slic_assign": "ops.slic.slic_assign",
     "ops.pallas_attention.pallas_multihead_attention": "ops.attention.fused_mha",
     "ops.pallas_attention.pallas_multihead_attention_trainable": "ops.attention.fused_mha",
+    "ops.connectivity.enforce_label_connectivity_runs":
+        "ops.connectivity.enforce_label_connectivity",
+    "ops.connectivity.enforce_label_connectivity_batched":
+        "ops.connectivity.enforce_label_connectivity",
 }
 # JAX modules without a module of the same name in the port, and why.
 BY_DESIGN = {

@@ -131,10 +131,9 @@ def _corner_map() -> torch.Tensor:
     return lab
 
 
-@pytest.mark.parametrize("path", ["enforce_label_connectivity",
-                                  "enforce_label_connectivity_runs"])
+@pytest.mark.parametrize("path", ["enforce_label_connectivity"])
 def test_merge_spans_count_the_merge_rounds(path):
-    """Both connectivity paths: one ``cmt::sync.merge`` span per merge-round
+    """The connectivity pass: one ``cmt::sync.merge`` span per merge-round
     test, as many as the rounds the pass reports (the last test finds
     nothing pending), and one ``cmt::sync.components`` span per components
     test, each a host read on the caller's thread."""
