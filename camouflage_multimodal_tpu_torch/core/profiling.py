@@ -13,10 +13,10 @@ range whose name starts with ``cmt::``. The spans:
   one kernel runs that fixed point with no host synchronisation, so the
   span never opens there), ``cmt::sync.components`` and ``cmt::sync.merge``
   (connectivity's components and merge rounds, ``ops/connectivity.py``),
-  whose counts are the fixed points' round counts; and the constants
-  copied from pageable host memory, which wait for the card's queue as a
-  read does, ``cmt::sync.lab``, ``cmt::sync.gray``, ``cmt::sync.sobel``
-  (``ops/image.py``) and ``cmt::sync.adjacency`` (``ops/rag.py``);
+  whose counts are the fixed points' round counts;
+- the stage graphs of the graph build on the card (``core/graphs.py``):
+  ``cmt::graph.capture`` around each capture and ``cmt::graph.replay``
+  around each replay, inside the stage's range;
 - the directory walk's stages and waits (``core/stages.py``):
   ``cmt::walk.decode``, ``cmt::walk.wait_input``, ``cmt::walk.wait_output``.
 

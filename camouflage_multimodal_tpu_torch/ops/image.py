@@ -9,17 +9,18 @@ pads them: "reflect" is numpy's ``symmetric`` (edge value repeated), which
 "nearest" the edge value and "constant" zeros; :func:`_pad_axis` builds
 each from slices.
 
-A constant built from a host list on the card (``torch.tensor(...,
-device=)``) is a copy from pageable memory, which waits for the card's
-queue to drain: each such copy on the graph build's path lies in a
-``cmt::sync.<site>`` span (``core.profiling``).
+The graph build's constants (:func:`rgb_to_gray`, :func:`_sobel`,
+:func:`rgb_to_lab`) are built once per device and dtype (:func:`_constant`):
+one built from a host list on every call is a copy from pageable memory,
+which waits for the card's queue to drain and cannot be captured in a CUDA
+graph.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import Dict, Tuple
 
-from camouflage_multimodal_tpu_torch.core.profiling import annotate
+import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -32,6 +33,21 @@ _XYZ_FROM_RGB = (
     (0.019334, 0.119193, 0.950227),
 )
 _D65_WHITE = (0.95047, 1.0, 1.08883)
+
+
+_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
+
+
+def _constant(values: tuple, like: torch.Tensor) -> torch.Tensor:
+    """``values`` as a tensor on ``like``'s device in its dtype, built on
+    the first call for that device and dtype and shared after. Built outside
+    inference mode, so autograd may save it."""
+    key = (values, like.device, like.dtype)
+    const = _CONSTANTS.get(key)
+    if const is None:
+        with torch.inference_mode(False):
+            const = _CONSTANTS[key] = torch.tensor(values, dtype=like.dtype, device=like.device)
+    return const
 
 
 def _dot3(img: torch.Tensor, w) -> torch.Tensor:
@@ -56,9 +72,7 @@ def imagenet_denormalize(img: torch.Tensor) -> torch.Tensor:
 
 def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 3) → (..., H, W) with the reference's weights."""
-    with annotate("cmt::sync.gray"):
-        w = torch.tensor(GRAY_WEIGHTS, dtype=img.dtype, device=img.device)
-    return _dot3(img, w)
+    return _dot3(img, _constant(GRAY_WEIGHTS, img))
 
 
 def blur_radius(sigma: float, truncate: float = 4.0) -> int:
@@ -141,11 +155,8 @@ def _sobel(img: torch.Tensor, dim: int, mode: str) -> torch.Tensor:
     """scipy.ndimage.sobel: [-1, 0, 1] along ``dim``, then [1, 2, 1] along
     the other of the last two axes, each padded in ``mode``."""
     other = -1 if dim == -2 else -2
-    with annotate("cmt::sync.sobel"):
-        deriv = torch.tensor([-1.0, 0.0, 1.0], dtype=img.dtype, device=img.device)
-        smooth = torch.tensor([1.0, 2.0, 1.0], dtype=img.dtype, device=img.device)
-    x = _correlate_valid(_pad_axis(img, 1, dim, mode), deriv, dim)
-    return _correlate_valid(_pad_axis(x, 1, other, mode), smooth, other)
+    x = _correlate_valid(_pad_axis(img, 1, dim, mode), _constant((-1.0, 0.0, 1.0), img), dim)
+    return _correlate_valid(_pad_axis(x, 1, other, mode), _constant((1.0, 2.0, 1.0), img), other)
 
 
 def sobel_h(img: torch.Tensor, mode: str = "reflect") -> torch.Tensor:
@@ -166,9 +177,7 @@ def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
     srgb = torch.clamp(rgb, 0.0, 1.0)
     linear = torch.where(srgb > 0.04045, ((srgb + 0.055) / 1.055) ** 2.4,
                          srgb / 12.92)
-    with annotate("cmt::sync.lab"):
-        m = torch.tensor(_XYZ_FROM_RGB, dtype=rgb.dtype, device=rgb.device)
-        white = torch.tensor(_D65_WHITE, dtype=rgb.dtype, device=rgb.device)
+    m, white = _constant(_XYZ_FROM_RGB, rgb), _constant(_D65_WHITE, rgb)
     xyz = torch.stack([_dot3(linear, m[i]) for i in range(3)], dim=-1)
     t = xyz / white
     delta = 6.0 / 29.0

@@ -17,7 +17,6 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from camouflage_multimodal_tpu_torch.core.profiling import annotate
 from camouflage_multimodal_tpu_torch.parallel.sharding import all_reduce_, halo_rows
 
 
@@ -51,8 +50,9 @@ def region_adjacency(segments: torch.Tensor, num_segments: int,
     for n in _forward_neighbor_maps(ext):
         n = n[:, top:top + H]
         n = torch.where((n >= 0) & (n < K), n, K)
-        with annotate("cmt::sync.adjacency"):    # True is copied from pageable host memory
-            adj[(base + s * K1 + n).reshape(-1)] = True
+        # index_fill_ takes True as a kernel argument; ``adj[idx] = True``
+        # would copy it from pageable host memory, a wait for the card.
+        adj.index_fill_(0, (base + s * K1 + n).reshape(-1), True)
     if row_group is not None:
         adj = all_reduce_(adj.view(torch.uint8), row_group, dist.ReduceOp.MAX).view(torch.bool)
     adj = adj.reshape(B, K1, K1)[:, :K, :K]

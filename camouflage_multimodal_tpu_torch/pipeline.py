@@ -3,7 +3,8 @@
 Port of ``camouflage_multimodal_tpu/pipeline.py``. The JAX package jits
 the whole chain into one program and ``vmap``s it; here it runs eagerly
 with a real batch axis, on the device of the input images and the models'
-weights. Stages, in order: uint8 → float, SLIC (Lab, blur, all-K
+weights (on the card the graph build's host-free stages replay as CUDA
+graphs, :func:`build_region_graphs`). Stages, in order: uint8 → float, SLIC (Lab, blur, all-K
 assignment through kernel B1, drift telemetry), connectivity, Canny,
 region features, 8-connected adjacency, RAG weights, ``RegionGraphGNN``,
 softmax + paint-back, then cross-attention fusion (kernel B2) and its four
@@ -26,6 +27,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from camouflage_multimodal_tpu_torch.core import graphs
 from camouflage_multimodal_tpu_torch.core.profiling import annotate
 from camouflage_multimodal_tpu_torch.models.fusion import MultimodalCamouflageDetector
 from camouflage_multimodal_tpu_torch.models.region_graph import RegionGraphGNN
@@ -61,6 +63,12 @@ def padded_nodes(n_segments: int, image_size: int, multiple: int = 128) -> int:
     return -(-(gh * gw) // multiple) * multiple
 
 
+# Keys (shapes and settings) whose stage graphs the card keeps: a
+# directory walk's batch and its short last one, serving's four buckets.
+_GRAPH_KEYS = 8
+_GRAPHS = graphs.GraphCache(_GRAPH_KEYS)
+
+
 def build_region_graphs(images: torch.Tensor, n_segments: int = 500,
                         max_nodes: Optional[int] = None, slic_iters: int = 10,
                         window_radius: int = 3,
@@ -73,32 +81,70 @@ def build_region_graphs(images: torch.Tensor, n_segments: int = 500,
     None normalizes positions by the image size, 256 reproduces the
     reference's hard-coded /256. Under a ``row_group`` (spatial sharding)
     ``images`` is this rank's block of rows and so is ``segments``; the
-    rest is the whole image's, the same on every rank."""
+    rest is the whole image's, the same on every rank.
+
+    On the card with no ``row_group``, the four stages that make no host
+    synchronisation (SLIC, Canny, region features, RAG) replay as CUDA
+    graphs (``core.graphs``), captured on the first call of each key:
+    the device, the images' shape and dtype and the settings. Connectivity
+    runs eagerly between them. Every tensor returned is the caller's own,
+    not a graph's buffer. CPU tensors and a ``row_group`` (its gathers and
+    all-reduces) run every stage eagerly."""
     if images.dtype == torch.uint8:
         images = images.float() / 255.0
     if max_nodes is None:
         max_nodes = padded_nodes(n_segments, spatial_rows(images.shape[1], row_group)[1])
+    settings = (n_segments, max_nodes, slic_iters, window_radius, feature_norm)
+    if images.is_cuda and row_group is None:
+        key = (images.device, tuple(images.shape), images.dtype) + settings
+        return _replayed(_GRAPHS.get(key, images.device), images, settings)
+    return _build_stages(images, *settings, _eager_stage, row_group)
+
+
+def _replayed(g: graphs.StageGraphs, images: torch.Tensor, settings: tuple) -> RegionGraphBatch:
+    """The build through one key's stage graphs, every output the caller's."""
+    with g.build():
+        batch = _build_stages(images, *settings, g.stage)
+        return RegionGraphBatch(*(g.fresh(t) for t in batch))
+
+
+def _eager_stage(span, fn, *inputs):
+    with span:
+        return fn(*inputs)
+
+
+def _build_stages(images, n_segments, max_nodes, slic_iters, window_radius, feature_norm,
+                  stage, row_group=None) -> RegionGraphBatch:
+    """The build's stages in order, each but connectivity through
+    ``stage(its cmt:: range, fn, *inputs)``, which runs ``fn(*inputs)``
+    inside that range: eagerly, or as a CUDA graph."""
     # cmt:: ranges name the stages in a torch.profiler trace (chip_smoke.py
     # --profile, the benchmark's --trace 1). A record_function call costs
     # 9-11 us on the host of an H100 80GB HBM3 machine (PyTorch 2.11, Python
     # 3.12; a loop of empty ranges), so with no profiler running annotate
     # opens none and costs one flag test.
-    with annotate("cmt::slic"):
-        raw, drift = slic(images, n_segments=n_segments, num_iters=slic_iters,
-                          backend="exact", enforce_connectivity=False, return_drift=True,
-                          window_radius=window_radius, row_group=row_group)
+    raw, drift = stage(annotate("cmt::slic"), lambda im: slic(
+        im, n_segments=n_segments, num_iters=slic_iters, backend="exact",
+        enforce_connectivity=False, return_drift=True, window_radius=window_radius,
+        row_group=row_group), images)
     with annotate("cmt::connectivity"):
         seg = enforce_label_connectivity(raw, n_segments, max_labels=max_nodes,
                                          row_group=row_group)
-    with annotate("cmt::canny"):
-        edges = canny(rgb_to_gray(images), sigma=2.0, row_group=row_group)
-    with annotate("cmt::region_features"):
-        reg = region_features(images, seg, edges, max_nodes, norm_size=feature_norm,
+    edges = stage(annotate("cmt::canny"), lambda im: canny(rgb_to_gray(im), sigma=2.0,
+                                                           row_group=row_group), images)
+
+    def features(im, sg, ed):
+        reg = region_features(im, sg, ed, max_nodes, norm_size=feature_norm,
                               row_group=row_group)
-    with annotate("cmt::rag"):
-        adj = region_adjacency(seg, max_nodes, row_group=row_group)
-        w = rag_edge_weights(reg["features"], adj)
-    return RegionGraphBatch(seg, reg["features"], adj, w, reg["node_mask"], drift)
+        return reg["features"], reg["node_mask"]
+
+    def rag(sg, feats):
+        adj = region_adjacency(sg, max_nodes, row_group=row_group)
+        return adj, rag_edge_weights(feats, adj)
+
+    feats, node_mask = stage(annotate("cmt::region_features"), features, images, seg, edges)
+    adj, w = stage(annotate("cmt::rag"), rag, seg, feats)
+    return RegionGraphBatch(seg, feats, adj, w, node_mask, drift)
 
 
 def build_region_graphs_with_labels(

@@ -30,11 +30,17 @@ cc_mod = importlib.import_module("camouflage_multimodal_tpu_torch.ops.connectivi
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "camouflage_multimodal_tpu_torch"
 SYNC_SPANS = ("cmt::sync.canny", "cmt::sync.components", "cmt::sync.merge")
-# The build's other host synchronisations (copies of constants from
-# pageable host memory) and the stage ranges that hold them.
+# The build's other host synchronisations until the constants were built
+# once per device and the adjacency's True became a kernel argument (copies
+# from pageable host memory), by the stage ranges that held them: they no
+# longer open.
 UPLOAD_SPANS = {"cmt::sync.lab": ("cmt::slic",), "cmt::sync.sobel": ("cmt::canny",),
                 "cmt::sync.gray": ("cmt::canny", "cmt::region_features"),
                 "cmt::sync.adjacency": ("cmt::rag",)}
+# The stage graphs' spans (core/graphs.py) and the ranges that hold them:
+# on the card the four host-free stages replay as CUDA graphs.
+GRAPH_SPANS = {name: ("cmt::slic", "cmt::canny", "cmt::region_features", "cmt::rag")
+               for name in ("cmt::graph.capture", "cmt::graph.replay")}
 WALK_SPANS = ("cmt::walk.decode", "cmt::walk.wait_input", "cmt::walk.wait_output")
 
 
@@ -83,8 +89,8 @@ def test_build_records_one_sync_span_per_fixed_point_test(two_threads, monkeypat
     """``build_region_graphs`` on a CPU batch: as many ``cmt::sync.canny``
     spans as the hysteresis ran convergence tests, ``cmt::sync.components``
     as connected components ran, ``cmt::sync.merge`` as the merge rounds
-    tested for pending merges, and the constant uploads' spans; each nested
-    in its stage's range on the caller's thread."""
+    tested for pending merges, each nested in its stage's range on the
+    caller's thread; the constant uploads' spans no longer open."""
     calls = Counter()
 
     def counted(name, fn):
@@ -113,9 +119,7 @@ def test_build_records_one_sync_span_per_fixed_point_test(two_threads, monkeypat
     assert _inside(spans["cmt::sync.canny"], _ranges(events, "cmt::canny"))
     for name in ("cmt::sync.components", "cmt::sync.merge"):
         assert _inside(spans[name], _ranges(events, "cmt::connectivity"))
-    for name, stages_in in UPLOAD_SPANS.items():
-        spans[name] = _ranges(events, name)
-        assert spans[name] and _inside(spans[name], sum((_ranges(events, s) for s in stages_in), []))
+    assert not any(_ranges(events, name) for name in UPLOAD_SPANS)
     caller = {t for _, _, t in _ranges(events, "cmt::slic")}
     assert len(caller) == 1 and all(t in caller for n in spans for *_, t in spans[n])
 
@@ -219,8 +223,8 @@ def _calls(tree, name):
 
 def test_one_span_helper_and_every_span_named_cmt():
     """The port opens spans only through ``core.profiling.annotate``, and
-    each name it passes is a literal starting with ``cmt::``; the sync and
-    walk spans are among them."""
+    each name it passes is a literal starting with ``cmt::``; the sync,
+    walk and graph spans are among them, the constant uploads' are not."""
     names = set()
     for path in sorted(PORT.rglob("*.py")):
         tree = ast.parse(path.read_text())
@@ -230,21 +234,25 @@ def test_one_span_helper_and_every_span_named_cmt():
             arg = call.args[0]
             assert isinstance(arg, ast.Constant) and arg.value.startswith("cmt::"), path
             names.add(arg.value)
-    assert set(SYNC_SPANS + WALK_SPANS).union(UPLOAD_SPANS) <= names
+    assert set(SYNC_SPANS + WALK_SPANS).union(GRAPH_SPANS) <= names
+    assert not names & set(UPLOAD_SPANS)
     assert not hasattr(profiling, "StageTimer") and not hasattr(profiling, "trace")
 
 
 @pytest.mark.cuda
 def test_spans_are_not_device_work_on_the_card():
     """On the card, under CPU and CUDA tracing: the spans' mirrors on the
-    card's timeline are no card events, and the kernels are. Canny's
-    hysteresis runs its fixed point in one kernel there, so it opens no
-    ``cmt::sync.canny`` span, and that kernel's launch call lies inside
+    card's timeline are no card events, and the kernels are. The build's
+    four host-free stages replay as CUDA graphs there, one
+    ``cmt::graph.replay`` span inside each stage's range, and the constant
+    uploads' spans no longer open. Canny's hysteresis runs its fixed point
+    in one kernel, so it opens no ``cmt::sync.canny`` span, and that
+    kernel's launch call, the Canny graph's ``cudaGraphLaunch``, lies inside
     ``cmt::canny`` on the caller's thread."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     images = _images(n=4, size=96, device="cuda")
-    pipeline.build_region_graphs(images, n_segments=60)     # builds and loads the kernels
+    pipeline.build_region_graphs(images, n_segments=60)     # builds the kernels, captures
     torch.cuda.synchronize()
 
     def run():
@@ -259,8 +267,12 @@ def test_spans_are_not_device_work_on_the_card():
         run()
     events = prof.events()
     names = {e.name for e in events}
-    on_card = set(SYNC_SPANS + WALK_SPANS).union(UPLOAD_SPANS) - {"cmt::sync.canny"}
-    assert on_card <= names and "cmt::sync.canny" not in names
+    on_card = set(SYNC_SPANS + WALK_SPANS + ("cmt::graph.replay",)) - {"cmt::sync.canny"}
+    assert on_card <= names and not names & {"cmt::sync.canny", "cmt::graph.capture"}
+    assert not names & set(UPLOAD_SPANS)
+    replays = _ranges(events, "cmt::graph.replay")
+    stage_ranges = sum((_ranges(events, s) for s in GRAPH_SPANS["cmt::graph.replay"]), [])
+    assert len(replays) == 4 and _inside(replays, stage_ranges)
     card = [e for e in events if profiling.is_card_event(e)]
     assert card and not any(e.name.startswith("cmt::") for e in card)
 
@@ -269,7 +281,7 @@ def test_spans_are_not_device_work_on_the_card():
     hysteresis = {ev.correlation_id() for ev in raw if ev.device_type() != cpu
                   and "canny_hysteresis_kernel" in ev.name()}
     launches = [(ev.start_ns(), ev.start_thread_id()) for ev in raw if ev.device_type() == cpu
-                and ev.name().startswith(("cudaLaunch", "cuLaunch"))
+                and ev.name().startswith("cudaGraphLaunch")
                 and ev.correlation_id() in hysteresis]
     canny = [(ev.start_ns(), ev.start_ns() + ev.duration_ns(), ev.start_thread_id())
              for ev in raw if ev.device_type() == cpu and ev.name() == "cmt::canny"]
